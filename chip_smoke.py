@@ -9,21 +9,37 @@ failure, and prints the final JSON line only when every phase passed):
 1. device and build: the card from ``nvidia-smi``, then the hand-written
    kernels built from ``pgslam_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path (K1: 2048x8192 k=1, 8192x8192 k=8,
+   shapes of the main paths (K1: 2048x8192 k=1, 8192x8192 k=8,
    65536x65536 k=1; K2: the 64k profile's loop-closure verification,
    2048 vs 8192 points, point-to-plane, coarse_div 8, every output of the
    registration and its final pass; K3: a 500-pose loop under the
-   profile's LM settings, poses, costs and iteration count), with
-   CUDA-event times after a warm-up;
-3. the 64k-point corridor replay (the Velodyne-scale profile) through
-   ``PoseGraphSlam.add_data`` against ``tests/fixtures/golden_replay_64k.npz``;
-4. the 70-scan loop replay against ``tests/fixtures/golden_replay.npz``
-   (20 keyframes, one accepted loop closure, one LM optimize).
+   profile's LM settings, poses, costs and iteration count; K4: one LM
+   step's PCG solve of the ``pgo_1k`` and ``pgo_16k`` graphs, agreement,
+   residuals and bit-for-bit repeats), with CUDA-event times after a
+   warm-up;
+3. the per-scan main path: the 64k-point corridor replay (the
+   Velodyne-scale profile) through ``PoseGraphSlam.add_data`` against
+   ``tests/fixtures/golden_replay_64k.npz``, and the 70-scan loop replay
+   against ``tests/fixtures/golden_replay.npz`` (20 keyframes, one
+   accepted loop closure, one LM optimize on K3);
+4. the large-graph back end: ``optimize_pose_graph`` end to end on
+   ``pgo_1k`` (``solver="pcg_pallas"`` under the bench's ``PGOConfig``
+   and under the default, ``"cholesky"`` under the bench's with 10 LM
+   iterations) and on ``pgo_16k`` (``"pcg"``, which routes to K4), each
+   against its plain loop, with K3 timed beside on ``pgo_1k`` and a
+   control per problem and config that the limits must catch; then the
+   loop replay with ``solver="pcg_pallas"``.
 
-The launch counters are zeroed before phase 3 and read after phase 4;
-every kernel must have run on that main path. The second-to-last line is
-the per-kernel JSON summary; the last is
-``{"ok": true, "device": {...}}``.
+The launch counters are zeroed before phase 3 and read after it, where
+K1-K3 must have run, and zeroed again before phase 4 and read after it,
+where K4 must have run. The second-to-last line is the per-kernel JSON
+summary; the last is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --crossover
+
+builds the kernels and only times K3 against the LM loop with K4 at the
+padded shapes ``Optimizer`` sends (the measurement behind
+``optim.pgo.K3_MAX_SIZE``, about three minutes).
 """
 
 import json
@@ -44,6 +60,48 @@ K3_ROT_TOL = 1e-4         # rotation matrix entries
 K3_COST_RTOL = 1e-3
 K3_CLOSURE_GATE_M = 0.01  # BASELINE config 3's gate (closure_err < 0.01 m)
 K1_D2_RTOL = 1e-5
+K4_X_RTOL = 1e-3          # of max|x_plain|: fp32 CG with another sum order
+K4_RESIDUAL_FACTOR = 1.5  # |A x + b| / |b| <= this * sqrt(cg_tol)
+# The pgo phase holds each route to its plain loop: poses (m) and final
+# costs (relative to the plain cost, plus PGO_COST_ATOL), per problem and
+# config. Each limit stands a few times above the largest reading of the
+# sound runs on the card (each route against the plain loop, and the plain
+# loop against itself: it does not repeat exactly on the card, its
+# index_add_ sums use atomics), and each run also measures a control, the
+# loop with one CG step per LM iteration (a stop test that fires too
+# early), which must fail the same limits. PERF.md (section 6) lists
+# both readings. Under the default config the loops end on fp32 noise at
+# pgo_1k (poses up to 7.1e-5 m apart) and, at pgo_16k, still descending
+# with poses up to 320 m from the anchor (1.1e-4 to 1.9e-4 m and 0.2 % of
+# the cost apart).
+# The dense route: fp32 Cholesky steps on pgo_1k's normal matrix (the 1e12
+# anchor prior beside edge information of 1e2) are 1.1 % (CPU) and 3.8 %
+# (card) off the fp64 step, and the card's loop (index_add_ assembly,
+# cuSOLVER) does not repeat exactly. After 10 LM iterations its poses
+# stood 2.7e-5 to 1.3e-4 m from the CPU loop's, both costs at their floor.
+PGO_LIMITS = {("pgo_1k", "bench"): (1e-5, 1e-3),
+              ("pgo_1k", "bench_10_iterations"): (4e-4, 1e-3),
+              ("pgo_1k", "default"): (2e-4, 1e-3),
+              ("pgo_16k", "default"): (5e-4, 6e-3)}
+# A converged cost is fp32 noise: at pgo_1k under the default config the
+# routes ended between 7.45e-6 and 7.67e-6, at most 2.0e-7 from the plain
+# loop's.
+PGO_COST_ATOL = 5e-7
+
+# Peaks of one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# the least time for a kernel's work is the larger of its bytes over the
+# memory rate and its fp32 operations over the fp32 rate.
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
+# fp32 operations, counted from the kernels' sources: a squared distance
+# (3 subtractions, 3 multiply-adds); one LM iteration of K3 per edge (the
+# residual, Jacobians and three 6x6 blocks, about 4.2k) and per vertex
+# (sums, the 6x6 Schur inverse and the retraction, about 0.7k); one PCG
+# step per edge (four 6x6 block products, 288, and the sums, 12) and per
+# vertex (preconditioner 72, updates and dot products 84).
+PAIR_FLOPS = 8
+LM_EDGE_FLOPS, LM_VERTEX_FLOPS = 4200, 700
+CG_EDGE_FLOPS, CG_VERTEX_FLOPS = 300, 156
 
 
 def line(phase: str, **kw) -> None:
@@ -51,15 +109,15 @@ def line(phase: str, **kw) -> None:
           flush=True)
 
 
-def timed(fn, reps: int, warmup: int = 1):
-    """Mean milliseconds of ``fn`` by CUDA events, synchronizing after
-    every call; returns (ms, last result)."""
+def run_times(fn, reps: int, warmup: int = 1):
+    """Milliseconds of each of ``reps`` calls of ``fn`` by CUDA events,
+    synchronizing after every call; returns (list of ms, last result)."""
     import torch
     out = None
     for _ in range(warmup):
         out = fn()
         torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -67,8 +125,22 @@ def timed(fn, reps: int, warmup: int = 1):
         out = fn()
         end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps, out
+        times.append(start.elapsed_time(end))
+    return times, out
+
+
+def timed(fn, reps: int, warmup: int = 1):
+    """Mean milliseconds of ``fn`` (:func:`run_times`); returns (ms, last
+    result)."""
+    times, out = run_times(fn, reps, warmup)
+    return sum(times) / reps, out
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms on an H100 at 700 W, what bounds it)."""
+    t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+    t_ops = 1e3 * flops / H100_FP32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device_and_build():
@@ -117,9 +189,12 @@ def phase_k1(dev, scans):
         if err > tol:
             raise AssertionError(f"K1 {name}: d2 err {err} > {tol}")
         worst = max(worst, err)
-        times[name] = (ms, pms)
+        n, m = len(q), len(r)
+        bnd = bound(13 * n + 13 * m + 8 * n * k, PAIR_FLOPS * n * m)
+        times[name] = (ms, pms, bnd)
         line("k1", shape=name, ids_equal=True, max_abs_err=err,
-             ms=round(ms, 4), plain_ms=round(pms, 4))
+             ms=round(ms, 4), plain_ms=round(pms, 4),
+             bound_ms=round(bnd[0], 5))
     return worst, times
 
 
@@ -160,12 +235,18 @@ def phase_k2(dev, seq):
                     / plain.residual.abs().max().clamp(min=1e-30))
     cov_err = float((res.cov - plain.cov).abs().max()
                     / plain.cov.abs().max().clamp(min=1e-30))
-    line("k2", shape=f"{reading.capacity}x{ref.capacity}_p2plane_c8",
+    # Bound: the fine iterations and the final pass, each a 2048 x 8192
+    # search (the coarse stage's count is not reported, so it is left out
+    # and the bound stays a lower bound); every input read once.
+    n, m = reading.capacity, ref.capacity
+    bnd = bound(13 * n + 25 * m + 4 * (16 + 56),
+                PAIR_FLOPS * n * m * (it_k + 1))
+    line("k2", shape=f"{n}x{m}_p2plane_c8",
          iterations=it_k, plain_iterations=it_p, converged=conv_k,
          plain_converged=conv_p, overlap=float(res.overlap[0]),
          overlap_err=ov_err, residual=float(res.residual[0]),
          residual_rel_err=res_err, cov_rel_err=cov_err, max_abs_err=err,
-         ms=round(ms, 4), plain_ms=round(pms, 4))
+         ms=round(ms, 4), plain_ms=round(pms, 4), bound_ms=round(bnd[0], 5))
     if not (err <= K2_T_TOL and it_k == it_p and conv_k == conv_p
             and ov_err <= K2_OVERLAP_TOL and res_err <= K2_RESIDUAL_RTOL
             and cov_err <= K2_COV_RTOL):
@@ -174,7 +255,7 @@ def phase_k2(dev, seq):
             f"{it_k} vs {it_p}, converged {conv_k} vs {conv_p}, overlap "
             f"err {ov_err}, residual rel err {res_err}, cov rel err "
             f"{cov_err}")
-    return err, ms, pms
+    return err, ms, pms, bnd
 
 
 def loop_500(dev):
@@ -226,11 +307,14 @@ def phase_k3(dev):
     it_k, it_p = int(sk["iterations"]), int(sp["iterations"])
     closure = float(np.linalg.norm(pk[-1, :3, 3].cpu().numpy()
                                    - true[-1, :3, 3]))
+    V, E = args[0].shape[0], args[2].shape[0]
+    bnd = lm_bound(V, E, it_k, int(sp["cg_steps"]))
     line("k3", shape="500_poses_500_edges", iterations=it_k,
-         plain_iterations=it_p, final_cost=costs["final_cost"][0],
+         plain_iterations=it_p, plain_cg_steps=int(sp["cg_steps"]),
+         final_cost=costs["final_cost"][0],
          plain_final_cost=costs["final_cost"][1], cost_rel_err=cost_err,
          closure_err_m=closure, rot_err=rot_err, max_abs_err=err,
-         ms=round(ms, 4), plain_ms=round(pms, 4))
+         ms=round(ms, 4), plain_ms=round(pms, 4), bound_ms=round(bnd[0], 5))
     if not (err <= K3_POSE_TOL_M and rot_err <= K3_ROT_TOL
             and cost_err <= K3_COST_RTOL and it_k == it_p
             and closure < K3_CLOSURE_GATE_M):
@@ -238,26 +322,271 @@ def phase_k3(dev):
             f"K3 disagrees with its plain version: pose gap {err} m, "
             f"rotation err {rot_err}, cost rel err {cost_err}, iterations "
             f"{it_k} vs {it_p}, closure {closure} m")
-    return err, ms, pms
+    return err, ms, pms, bnd
 
 
-def phase_replay(dev, name, keyframes, loops):
+def lm_bound(V: int, E: int, lm_iterations: int, cg_steps: int):
+    """K3's least time: its inputs (poses, masks, endpoints, measurements,
+    covariances) read once and the poses written once; the operations of
+    its LM iterations and of the CG steps (taken from the plain version,
+    which K3 does not report)."""
+    nbytes = 64 * V + V + E * (8 + 64 + 144 + 2) + 64 * V + 16
+    flops = (lm_iterations * (LM_EDGE_FLOPS * E + LM_VERTEX_FLOPS * V)
+             + cg_steps * (CG_EDGE_FLOPS * E + CG_VERTEX_FLOPS * V))
+    return bound(nbytes, flops)
+
+
+def phase_k4(dev):
+    """One LM step's PCG solve at the initial poses of ``pgo_1k`` and
+    ``pgo_16k`` under the default ``PGOConfig`` (up to 64 CG steps,
+    cg_tol 1e-4): K4 against its plain version. Returns, per problem,
+    (max abs err, ms, plain ms, bound)."""
+    import torch
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optim.lm import edge_csr
+    from pgslam_tpu_torch.optim.pcg import pcg_solve
+    from pgslam_tpu_torch.pgo_problems import named_problem
+    cfg = pgo.PGOConfig()
+    kw = dict(cg_iterations=cfg.cg_iterations, cg_tol=cfg.cg_tol,
+              return_iterations=True)
+    out = {}
+    for name in ("pgo_1k", "pgo_16k"):
+        args, _ = named_problem(name, device=dev)
+        prob = pgo.LMProblem(*args, config=cfg)
+        blocks, b, D = prob.system(args[0])
+        lam = torch.tensor(cfg.lambda_init, device=dev)
+        P_inv, damp = pgo.block_jacobi(D, lam, args[1])
+        sysargs = (blocks, P_inv, damp, b, prob.prior_info, prob.fixed,
+                   prob.ef, prob.et)
+        V, E = b.shape[0], blocks[0].shape[0]
+        csr = edge_csr(prob.ef, prob.et, V)
+        ms, (xk, sk) = timed(lambda: pcg_solve(*sysargs, csr=csr, **kw), 20)
+        x2, _ = pcg_solve(*sysargs, csr=csr, **kw)
+        pms, (xp, sp) = timed(lambda: pgo.pcg_solve_plain(*sysargs, **kw), 3)
+        torch.cuda.synchronize()
+        repeat = torch.equal(xk, x2)
+        err = float((xk - xp).abs().max())
+        scale = float(xp.abs().max())
+
+        def rel_residual(x):
+            Ax = pgo.system_matvec(blocks, damp, prob.prior_info, prob.fixed,
+                                   prob.ef, prob.et, x)
+            return float((Ax + b).norm() / b.norm())
+
+        rk, rp = rel_residual(xk), rel_residual(xp)
+        steps = int(sk)
+        # Bound: the three block tensors, P_inv, damping, b, endpoints and
+        # CSR order read once, x written once; the operations of the steps
+        # this solve took and of its start.
+        nbytes = 3 * 144 * E + V * (144 + 24 + 24) + 8 * E \
+            + 4 * (V + 1 + 2 * E) + 24 * V
+        bnd = bound(nbytes, steps * (CG_EDGE_FLOPS * E + CG_VERTEX_FLOPS * V)
+                    + 96 * V)
+        res_tol = K4_RESIDUAL_FACTOR * cfg.cg_tol ** 0.5
+        line("k4", problem=name, V=V, E=E, grid=pcg_solve.grid,
+             cg_steps=steps, plain_cg_steps=sp, max_abs_err=err,
+             max_abs_plain=scale, rel_residual=rk, plain_rel_residual=rp,
+             repeats_bitwise=repeat, ms=round(ms, 4), plain_ms=round(pms, 4),
+             bound_ms=round(bnd[0], 6), bound_by=bnd[1])
+        if not (err <= K4_X_RTOL * scale and rk <= res_tol
+                and rp <= res_tol and repeat and pcg_solve.grid > 1):
+            raise AssertionError(
+                f"K4 {name}: err {err} vs {K4_X_RTOL} * {scale}, residuals "
+                f"{rk} / {rp} vs {res_tol}, repeats {repeat}, grid "
+                f"{pcg_solve.grid}")
+        out[name] = (err, ms, pms, bnd)
+    return out
+
+
+def _pgo_gaps(pk, sk, pp, sp, cost_rtol=K3_COST_RTOL):
+    """Pose gap (m), rotation entry error, final-cost error relative to
+    the plain cost, and whether the cost error is within ``cost_rtol`` of
+    the plain cost plus PGO_COST_ATOL."""
+    gap = float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max())
+    rot = float((pk[:, :3, :3] - pp[:, :3, :3]).abs().max())
+    ck, cp = float(sk["final_cost"]), float(sp["final_cost"])
+    cost = abs(ck - cp) / max(abs(cp), 1e-30)
+    cost_ok = abs(ck - cp) <= cost_rtol * abs(cp) + PGO_COST_ATOL
+    return gap, rot, cost, cost_ok
+
+
+def phase_pgo(dev):
+    """``optimize_pose_graph`` end to end on the large-graph problems,
+    each route against its plain loop (the dense route against the same
+    loop on the CPU), with K3 timed beside on ``pgo_1k``, and per problem
+    and config a control that the limits must catch."""
+    import dataclasses
+
+    import torch
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.optim.pcg import pcg_solve
+    from pgslam_tpu_torch.pgo_problems import named_problem
+    bench = pgo.PGOConfig(max_iterations=4, cg_iterations=30, cg_tol=1e-3)
+    default = pgo.PGOConfig()
+    # The dense route runs 10 LM iterations: after the bench's 4 the fp32
+    # Cholesky loops on the card and on the CPU are not yet at their floor.
+    dense = dataclasses.replace(bench, max_iterations=10)
+    failures = []
+    cases = (("pgo_1k", "bench", bench, ("pcg_pallas",)),
+             ("pgo_1k", "bench_10_iterations", dense, ("cholesky",)),
+             ("pgo_1k", "default", default, ("pcg_pallas",)),
+             ("pgo_16k", "default", default, ("pcg",)))
+    for name, cname, cfg, solvers in cases:
+        args, _ = named_problem(name, device=dev)
+        V, E = args[0].shape[0], args[2].shape[0]
+        pose_tol, cost_rtol = PGO_LIMITS[(name, cname)]
+        repeat = (None, None)
+        if cfg is dense:
+            plain_name = "the dense loop on the CPU"
+            cpu = tuple(a.cpu() if torch.is_tensor(a) else a for a in args)
+            t0 = time.perf_counter()
+            pc, sc = pgo.optimize_pose_graph(
+                *cpu, config=dataclasses.replace(cfg, solver="cholesky"))
+            ref_ms, ref = 1e3 * (time.perf_counter() - t0), (pc.to(dev), sc)
+        else:
+            plain_name = "the pcg_plain loop on the card"
+            plain = lambda: pgo.lm_optimize_loop(*args, config=cfg,
+                                                 solve="pcg_plain")
+            ref_ms, ref = timed(plain, 1, warmup=0)
+            # The plain loop does not repeat exactly on the card (index_add_
+            # sums with atomics): its own spread, beside the kernel's gap.
+            repeat = _pgo_gaps(*plain(), *ref)[::2]
+        runs = [(s, dataclasses.replace(cfg, solver=s)) for s in solvers]
+        if name == "pgo_1k" and cfg is not dense:
+            runs.append(("lm_pallas", dataclasses.replace(
+                cfg, solver="lm_pallas")))
+
+        def within(gap, rot, cost_ok):
+            return gap <= pose_tol and rot <= K3_ROT_TOL and cost_ok
+
+        for solver, c in runs:
+            path = pgo.route(c, V, E, dev)
+            before = (pcg_solve.launches, lm_optimize.launches)
+            ms, (pk, sk) = timed(
+                lambda: pgo.optimize_pose_graph(*args, config=c), 3)
+            k4_runs = pcg_solve.launches - before[0]
+            k3_runs = lm_optimize.launches - before[1]
+            gap, rot, cost, cost_ok = _pgo_gaps(pk, sk, *ref, cost_rtol)
+            line("pgo", problem=name, config=cname, solver=solver,
+                 route=path, k4_launches=k4_runs, k3_launches=k3_runs,
+                 iterations=int(sk["iterations"]),
+                 plain_iterations=int(ref[1]["iterations"]),
+                 cg_steps=int(sk.get("cg_steps", -1)),
+                 final_cost=float(sk["final_cost"]),
+                 plain_final_cost=float(ref[1]["final_cost"]),
+                 pose_gap_m=gap, pose_tol_m=pose_tol, rot_err=rot,
+                 cost_rel_err=cost, cost_rtol=cost_rtol,
+                 plain_repeat_gap_m=repeat[0],
+                 plain_repeat_cost_rel_err=repeat[1],
+                 ms=round(ms, 4), plain_ms=round(ref_ms, 4),
+                 plain=plain_name.replace(" ", "_"))
+            want_k4 = path == "pcg"
+            if (k4_runs > 0) != want_k4 or (k3_runs > 0) != (path == "lm"):
+                raise AssertionError(f"{name} {solver}: route {path} but "
+                                     f"K4 ran {k4_runs}, K3 {k3_runs} times")
+            if name == "pgo_16k" and not want_k4:
+                raise AssertionError("pgo_16k under solver='pcg' did not "
+                                     "route to K4")
+            if not within(gap, rot, cost_ok):
+                failures.append(
+                    f"{name} {cname} {solver} disagrees with its plain "
+                    f"loop: pose gap {gap} m, rotation err {rot}, cost rel "
+                    f"err {cost}")
+        # The control: the loop stopping every solve after one CG step (the
+        # plain solve, so that K4's count holds only the routes' launches).
+        pk, sk = pgo.lm_optimize_loop(
+            *args, config=dataclasses.replace(cfg, cg_iterations=1),
+            solve="pcg_plain")
+        gap, rot, cost, cost_ok = _pgo_gaps(pk, sk, *ref, cost_rtol)
+        caught = not within(gap, rot, cost_ok)
+        line("pgo_control", problem=name, config=cname, cg_iterations=1,
+             iterations=int(sk["iterations"]),
+             final_cost=float(sk["final_cost"]), pose_gap_m=gap,
+             pose_tol_m=pose_tol, rot_err=rot, cost_rel_err=cost,
+             caught=caught)
+        if not caught:
+            failures.append(f"{name} {cname}: the one-step control passes "
+                            f"the limits (pose gap {gap} m, rotation err "
+                            f"{rot}, cost rel err {cost})")
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def phase_crossover(dev):
+    """K3 against the LM loop with K4 under the default ``PGOConfig``, at
+    the padded shapes ``Optimizer`` sends: per power-of-two V, a ring
+    trajectory of 3V/4 poses with V/8 loop edges (E = V after padding,
+    a SLAM run's odometry chain with few closures) and one of V poses
+    with V + 1 loop edges (E = 2V, ``pgo_1k``'s construction). The two are
+    timed in turn, after one warm-up each, and compared by their medians
+    (the loop's host time swings between calls)."""
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.pgo_problems import bucketed_problem
+    cfg = pgo.PGOConfig()
+    k3_faster = []
+    for V in (512, 1024, 2048, 4096, 16384):
+        for n_vertices, n_loop in ((3 * V // 4, V // 8), (V, V + 1)):
+            args, _ = bucketed_problem(n_vertices, n_loop, device=dev)
+            E = args[2].shape[0]
+            reps = 5 if V <= 4096 else 2
+            k3 = lambda: lm_optimize(*args, config=cfg)
+            loop = lambda: pgo.lm_optimize_loop(*args, config=cfg,
+                                                solve="pcg")
+            run_times(k3, 0)
+            run_times(loop, 0)
+            k3_ms, loop_ms = [], []
+            for _ in range(reps):
+                t, (p3, s3) = run_times(k3, 1, warmup=0)
+                k3_ms += t
+                t, (p4, s4) = run_times(loop, 1, warmup=0)
+                loop_ms += t
+            k3_med, loop_med = float(np.median(k3_ms)), float(np.median(loop_ms))
+            if k3_med < loop_med:
+                k3_faster.append(V + E)
+            gap = float((p3[:, :3, 3] - p4[:, :3, 3]).norm(dim=1).max())
+            line("crossover", V=V, E=E, n_vertices=n_vertices,
+                 n_edges=n_vertices - 1 + n_loop,
+                 k3_ms=",".join(f"{t:.3f}" for t in k3_ms),
+                 loop_ms=",".join(f"{t:.3f}" for t in loop_ms),
+                 k3_median_ms=round(k3_med, 3),
+                 loop_median_ms=round(loop_med, 3),
+                 k3_iterations=int(s3["iterations"]),
+                 loop_iterations=int(s4["iterations"]),
+                 loop_cg_steps=int(s4["cg_steps"]), pose_gap_m=gap,
+                 route=pgo.route(cfg, V, E, dev))
+    line("crossover", k3_faster_at_sizes=",".join(map(str, k3_faster)),
+         K3_MAX_SIZE=pgo.K3_MAX_SIZE)
+
+
+def phase_replay(dev, name, keyframes, loops, solver=None):
+    import dataclasses
+
     import torch
     from pgslam_tpu_torch import replays
+    config, label = None, f"replay_{name}"
+    if solver is not None:
+        config = replays.REPLAYS[name][1]()
+        config = dataclasses.replace(config, optimizer=dataclasses.replace(
+            config.optimizer, pgo=dataclasses.replace(config.optimizer.pgo,
+                                                      solver=solver)))
+        label += f"_{solver}"
     t0 = time.perf_counter()
     per_scan, _, stats = replays.run_replay(name, device=dev,
-                                            sync=torch.cuda.synchronize)
+                                            sync=torch.cuda.synchronize,
+                                            config=config)
     wall = time.perf_counter() - t0
     gold = replays.fixture(name)
     gap = replays.max_pose_gap(per_scan, gold["per_scan_poses"])
     ms_scan = 1e3 * float(np.mean(stats["scan_seconds"]))
-    line(f"replay_{name}", scans=len(per_scan), keyframes=stats["n_keyframes"],
+    line(label, scans=len(per_scan), keyframes=stats["n_keyframes"],
          loop_edges=stats["n_loops"], max_gap_m=round(gap, 5),
          ms_per_scan=round(ms_scan, 3), wall_s=round(wall, 2))
     if not (np.isfinite(per_scan).all() and gap < POSE_TOL_M
             and stats["n_keyframes"] == keyframes
             and stats["n_loops"] == loops):
-        raise AssertionError(f"replay {name}: gap {gap}, keyframes "
+        raise AssertionError(f"{label}: gap {gap}, keyframes "
                              f"{stats['n_keyframes']}, loops "
                              f"{stats['n_loops']}")
     return gap, ms_scan
@@ -283,47 +612,66 @@ def main() -> int:
     from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
     from pgslam_tpu_torch.ops.knn import knn
     from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.optim.pcg import pcg_solve
     from pgslam_tpu_torch.replays import corridor_64k_sequence
 
     dev = torch.device("cuda", 0)
     phase_device_and_build()
+    if "--crossover" in sys.argv[1:]:
+        phase_crossover(dev)
+        return 0
     seq = corridor_64k_sequence()
     scans = seq[0]
     k1_err, k1_times = phase_k1(dev, scans)
-    k2_err, k2_ms, k2_pms = phase_k2(dev, seq)
-    k3_err, k3_ms, k3_pms = phase_k3(dev)
+    k2_err, k2_ms, k2_pms, k2_bnd = phase_k2(dev, seq)
+    k3_err, k3_ms, k3_pms, k3_bnd = phase_k3(dev)
+    k4 = phase_k4(dev)
 
-    wrappers = (knn, fused_icp_register, lm_optimize)
+    wrappers = (knn, fused_icp_register, lm_optimize, pcg_solve)
     for w in wrappers:
         w.launches = 0
     phase_replay(dev, "corridor_64k", keyframes=4, loops=0)
     if knn.launches == 0:
         raise AssertionError("corridor_64k replay never launched K1")
     phase_replay(dev, "loop", keyframes=20, loops=1)
-    launches = [w.launches for w in wrappers]
-    line("launches", k1=launches[0], k2=launches[1], k3=launches[2])
-    if min(launches) == 0:
-        raise AssertionError(f"a kernel of the main path never ran: "
-                             f"{launches}")
+    per_scan = [w.launches for w in wrappers]
+    if min(per_scan[:3]) == 0:
+        raise AssertionError(f"a kernel of the per-scan path never ran: "
+                             f"{per_scan}")
 
-    ms1, pms1 = k1_times["2048x8192_k1"]
-    kernels = [
-        {"name": "K1 knn", "route": "cuda",
-         "source": "pgslam_tpu_torch/csrc/knn.cu",
-         "replaces": "pgslam_tpu/ops/knn_pallas.py:173",
-         "launches": launches[0], "max_abs_err": k1_err,
-         "ms": ms1, "plain_ms": pms1},
-        {"name": "K2 icp_fused", "route": "cuda",
-         "source": "pgslam_tpu_torch/csrc/icp_fused.cu",
-         "replaces": "pgslam_tpu/ops/icp_pallas.py:667",
-         "launches": launches[1], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_pms},
-        {"name": "K3 lm", "route": "cuda",
-         "source": "pgslam_tpu_torch/csrc/lm.cu",
-         "replaces": "pgslam_tpu/optim/lm_pallas.py:1142",
-         "launches": launches[2], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_pms},
+    for w in wrappers:
+        w.launches = 0
+    phase_pgo(dev)
+    before = pcg_solve.launches
+    phase_replay(dev, "loop", keyframes=20, loops=1, solver="pcg_pallas")
+    if pcg_solve.launches == before:
+        raise AssertionError("the loop replay under pcg_pallas never "
+                             "launched K4")
+    k4_launches = pcg_solve.launches
+    line("launches", k1=per_scan[0], k2=per_scan[1], k3=per_scan[2],
+         k4=k4_launches)
+
+    ms1, pms1, bnd1 = k1_times["2048x8192_k1"]
+    k4_err, k4_ms, k4_pms, k4_bnd = k4["pgo_16k"]
+    rows = [
+        ("K1 knn", "knn.cu", "pgslam_tpu/ops/knn_pallas.py:173",
+         per_scan[0], k1_err, ms1, pms1, bnd1),
+        ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
+         per_scan[1], k2_err, k2_ms, k2_pms, k2_bnd),
+        ("K3 lm", "lm.cu", "pgslam_tpu/optim/lm_pallas.py:1142",
+         per_scan[2], k3_err, k3_ms, k3_pms, k3_bnd),
+        ("K4 pcg", "pcg.cu", "pgslam_tpu/optim/pcg_pallas.py:174",
+         k4_launches, k4_err, k4_ms, k4_pms, k4_bnd),
     ]
+    # library_ms: no single PyTorch call computes any of these functions
+    # (a masked k-NN, a whole ICP registration, a whole LM optimize, a
+    # truncated PCG solve).
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"pgslam_tpu_torch/csrc/{src}", "replaces": rep,
+                "launches": n, "max_abs_err": err, "ms": ms,
+                "plain_ms": pms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+               for name, src, rep, n, err, ms, pms, bnd in rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

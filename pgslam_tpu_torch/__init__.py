@@ -3,10 +3,11 @@
 Pose-graph SLAM over lidar scans: scan-to-local-map ICP, loop-closure
 search and verification, and SE(3) Levenberg-Marquardt. The hot kernels
 are hand-written CUDA for Hopper (``csrc/``): exact k-NN (K1), a whole
-ICP registration (K2) and a whole LM optimize (K3); each has a plain
-PyTorch version beside it that runs on CPU tensors.
+ICP registration (K2), a whole LM optimize (K3) and the PCG solve of one
+LM step across the card (K4, for large graphs); each has a plain PyTorch
+version beside it that runs on CPU tensors.
 
-    slam = PoseGraphSlam(config, device="cuda")
+    slam = PoseGraphSlam(config)      # on the GPU; device="cpu" for the CPU
     slam.add_data(timestamp, frame_id, T_world_robot, T_robot_sensor, cloud)
 
 This package imports torch and numpy only, never jax or pgslam_tpu.
@@ -27,14 +28,14 @@ from .ops.icp import ICPConfig, ICPEngine, ICPResult  # noqa: E402,F401
 
 __all__ = ["se3", "metrics", "Cloud", "make_cloud", "transform_cloud",
            "ICPConfig", "ICPEngine", "ICPResult", "PoseGraphSlam",
-           "SlamConfig", "PGOConfig", "optimize_pose_graph"]
+           "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals"]
 
 
 def __getattr__(name):
     if name in ("PoseGraphSlam", "SlamConfig"):
         from . import slam
         return getattr(slam, name)
-    if name in ("PGOConfig", "optimize_pose_graph"):
+    if name in ("PGOConfig", "optimize_pose_graph", "pose_marginals"):
         from .optim import pgo
         return getattr(pgo, name)
     raise AttributeError(f"module 'pgslam_tpu_torch' has no attribute "

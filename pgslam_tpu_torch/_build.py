@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and loads them with ctypes.
 
 The sources under ``csrc/`` are compiled at first use by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface (no PyTorch
-headers, so the build takes seconds). The library lands in ``_build/``
+``sm_90a``, one process per source, all at once, and linked into one
+shared library with a plain C interface (no PyTorch headers, so the
+build takes seconds). The library lands in ``_build/``
 beside this file, named by a hash of the sources, so an edited source is
 rebuilt and a stale library is never loaded.
 """
@@ -21,12 +22,12 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("knn.cu", "icp_fused.cu", "lm.cu")
+SOURCES = ("knn.cu", "icp_fused.cu", "lm.cu", "pcg.cu")
 HEADERS = ("rowmath.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every C entry point returns cudaGetLastError() after its launch.
 SIGNATURES = {
     # q, qmask, nq, r, rmask, nr, k, out_d, out_i, stream
@@ -38,6 +39,9 @@ SIGNATURES = {
     # csr_ptr, csr_ent, params(float*), iparams(int*), scratch, out_poses,
     # out_stats, stream
     "pgs_lm": (P, P, I, P, P, P, P, P, P, I, I, P, P, P, P, P, P, P, P),
+    # Hff, Htt, Hft, Pinv, damp, b, prior, ef, et, csr_ptr, csr_ent, V, E,
+    # fixed, cg_iterations, cg_tol, x, scratch, grid_out (host int*), stream
+    "pgs_pcg": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P, P, P, P),
 }
 
 
@@ -73,18 +77,30 @@ def build(verbose: bool = False) -> tuple:
         return path, 0.0, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp] + [os.path.join(CSRC, s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path, time.perf_counter() - t0, proc.stdout + proc.stderr
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        nvcc = _nvcc()
+        extra = ["-Xptxas", "-v"] if verbose else []
+        objs = [os.path.join(work, s + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *extra, "-I", CSRC, "-c", "-o", o,
+             os.path.join(CSRC, src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for src, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [src for src, p in zip(SOURCES, procs) if p.returncode]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "".join(logs))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return path, time.perf_counter() - t0, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

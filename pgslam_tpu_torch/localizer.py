@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .cloud import Cloud, dequantize_cloud, transform_cloud
+from .devices import resolve_device
 from .graph.pose_graph import MapManager
 from .graph.shortest_path import dijkstra
 from .localmap import Composition, LocalMap, build_cloud, stack_composition
@@ -83,7 +84,7 @@ class Localizer:
                 "(micro_batch) localizer paths are not ported yet")
         self.mm = map_manager
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.icp_engine = ICPEngine(config.icp)
         self.local_map = LocalMap(config.local_map_size)
         self.next_composition = Composition(config.local_map_size)

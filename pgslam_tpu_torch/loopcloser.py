@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .cloud import Cloud
+from .devices import resolve_device
 from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .graph.shortest_path import candidate_composition, dijkstra
 from .localmap import Composition, LocalMap
@@ -71,7 +72,7 @@ class LoopCloser:
         self.mm = map_manager
         self.optimizer = optimizer
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.candidate_local_map = LocalMap(config.candidate_local_map_size)
         self.input_vertex: Optional[int] = None
         self.input_cloud: Optional[Cloud] = None

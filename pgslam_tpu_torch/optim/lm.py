@@ -33,20 +33,27 @@ EDGE_SCRATCH = 36 + 16 + 108 + 12 + 12
 VERTEX_SCRATCH = 32 + 6 + 36 + 36 + 30
 
 
-def edge_csr(edge_from, edge_to, V: int):
+def edge_csr(edge_from, edge_to, V: int, emask=None):
     """Per-vertex incidence lists in a fixed order: for each vertex its
     'from' ends, then its 'to' ends, each in edge order. Entries encode
-    ``2 * edge + side``. Returns (ptr [V+1], entries [2E]) as int32."""
+    ``2 * edge + side``. Returns (ptr [V+1], entries [2E]) as int32.
+
+    Edges off in ``emask`` contribute exact zeros and are left out of the
+    lists (their entries follow ``ptr[V]``): ``Optimizer`` pads graphs
+    with such edges, all at vertex 0, where one thread would otherwise
+    walk them in every sum."""
     E = edge_from.shape[0]
     dev = edge_from.device
     ends = torch.cat([torch.clamp(edge_from.long(), 0, V - 1),
                       torch.clamp(edge_to.long(), 0, V - 1)])
+    if emask is not None:
+        ends = torch.where(emask.repeat(2), ends, V)
     side = torch.cat([torch.zeros(E, dtype=torch.long, device=dev),
                       torch.ones(E, dtype=torch.long, device=dev)])
     eidx = torch.arange(E, device=dev).repeat(2)
     order = torch.argsort((ends * 2 + side) * max(E, 1) + eidx)
     entries = (eidx * 2 + side)[order].to(torch.int32)
-    counts = torch.bincount(ends, minlength=V)
+    counts = torch.bincount(ends, minlength=V + 1)[:V]
     ptr = torch.zeros(V + 1, dtype=torch.int32, device=dev)
     ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
     return ptr, entries
@@ -77,7 +84,7 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
     fixed = int(fixed_id)
     if not 0 <= fixed < V:
         raise ValueError(f"fixed_id {fixed} outside 0..{V - 1}")
-    ptr, entries = edge_csr(ef, et, V)
+    ptr, entries = edge_csr(ef, et, V, emask)
     params = torch.tensor(
         [config.lambda_init, config.lambda_up, config.lambda_down,
          1.0 / config.prior_sigma ** 2, config.min_step_norm,

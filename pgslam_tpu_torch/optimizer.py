@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
+from .devices import resolve_device
 from .optim.pgo import PGOConfig, optimize_pose_graph
 
 log = logging.getLogger("pgslam_tpu_torch.optimizer")
@@ -22,6 +23,28 @@ log = logging.getLogger("pgslam_tpu_torch.optimizer")
 def _bucket(n: int, bucket: int) -> int:
     """Next power of two, at least ``bucket``."""
     return max(bucket, 1 << max(0, n - 1).bit_length())
+
+
+def pad_graph(poses, edge_from, edge_to, edge_T, edge_cov, bucket: int):
+    """A pose graph padded to fixed shapes, as numpy arrays (poses, vmask,
+    edge_from, edge_to, edge_T, edge_cov, emask): vertices and edges each
+    to the next power of two (at least ``bucket``); padded poses,
+    measurements and covariances are the identity, masks False and
+    endpoints 0."""
+    nv, ne = len(poses), len(edge_from)
+    V, E = _bucket(nv, bucket), _bucket(ne, bucket)
+    out_poses = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
+    out_poses[:nv] = poses
+    vmask = np.zeros(V, bool)
+    vmask[:nv] = True
+    ef = np.zeros(E, np.int32)
+    et = np.zeros(E, np.int32)
+    eT = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
+    ec = np.tile(np.eye(6, dtype=np.float32), (E, 1, 1))
+    emask = np.zeros(E, bool)
+    ef[:ne], et[:ne], eT[:ne], ec[:ne] = edge_from, edge_to, edge_T, edge_cov
+    emask[:ne] = True
+    return out_poses, vmask, ef, et, eT, ec, emask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +64,7 @@ class Optimizer:
                  config: OptimizerConfig = OptimizerConfig(), device=None):
         self.mm = map_manager
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.data_buffer: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
         self.last_stats = None
         self.runs = 0
@@ -74,34 +97,22 @@ class Optimizer:
         the current optimized poses as initial values, and the anchor."""
         g = self.mm.get_graph()
         nv, ne = g.n_vertices, g.n_edges
-        n_pending = len(self.data_buffer)
-        V = _bucket(nv, self.config.shape_bucket)
-        E = _bucket(ne + n_pending, self.config.shape_bucket)
-        poses = np.tile(np.eye(4, dtype=np.float32), (V, 1, 1))
-        poses[:nv] = g.optimized_poses[:nv]
-        vmask = np.zeros(V, bool)
-        vmask[:nv] = True
-        ef = np.zeros(E, np.int32)
-        et = np.zeros(E, np.int32)
-        eT = np.tile(np.eye(4, dtype=np.float32), (E, 1, 1))
-        ec = np.tile(np.eye(6, dtype=np.float32), (E, 1, 1))
-        emask = np.zeros(E, bool)
-        ef[:ne], et[:ne] = g.edge_from[:ne], g.edge_to[:ne]
-        eT[:ne], ec[:ne] = g.edge_T[:ne], g.edge_cov[:ne]
-        emask[:ne] = True
-        for k, (f, t, T, c) in enumerate(self.data_buffer):
-            ef[ne + k], et[ne + k] = f, t
-            eT[ne + k], ec[ne + k] = T, c
-            emask[ne + k] = True
+        pend = self.data_buffer
+        n_pending = len(pend)
+        arrays = pad_graph(
+            g.optimized_poses[:nv],
+            np.concatenate([g.edge_from[:ne], [p[0] for p in pend]]),
+            np.concatenate([g.edge_to[:ne], [p[1] for p in pend]]),
+            np.concatenate([g.edge_T[:ne]] + [p[2][None] for p in pend]),
+            np.concatenate([g.edge_cov[:ne]] + [p[3][None] for p in pend]),
+            self.config.shape_bucket)
         rmask = None
         if self.config.pgo.robust != "none":
-            rm = np.zeros(E, bool)
+            rm = np.zeros(len(arrays[2]), bool)
             rm[:ne] = g.edge_type[:ne] == LOOP_CONSTRAINT
             rm[ne:ne + n_pending] = True
             rmask = torch.as_tensor(rm, device=self.device)
-        dev = self.device
-        args = tuple(torch.as_tensor(a, device=dev)
-                     for a in (poses, vmask, ef, et, eT, ec, emask))
+        args = tuple(torch.as_tensor(a, device=self.device) for a in arrays)
         return args + (self.mm.get_fixed_vertex(),), rmask
 
     def update_after_optimization(self, new_poses: np.ndarray) -> None:

@@ -1,14 +1,17 @@
-"""Where a replay's time goes on the GPU.
+"""Where a replay's or a large-graph optimize's time goes on the GPU.
 
-    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k] [--trace DIR]
+    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|pgo_1k|pgo_16k] [--trace DIR]
 
-Runs the replay once to build and warm everything, then again under
+Runs the replay (or one ``optimize_pose_graph`` of the pose-graph problem
+under ``solver="pcg_pallas"`` and the default ``PGOConfig``: the LM loop
+with K4) once to build and warm everything, then again under
 ``torch.profiler`` (CPU and CUDA activities), synchronizing after every
-scan. Prints the card, the wall time per scan (the profiler's own host
-overhead included), the device's busy time and idle share over the run,
-the device-side events (kernels, copies) per scan, and the device time by
-kernel, with the port's own kernels (K1-K3) marked. ``--trace`` also
-writes a Chrome trace into DIR (tens of MB per replay).
+scan. Prints the card, the wall time per unit (scan, or LM iteration;
+the profiler's own host overhead included), the device's busy time and
+idle share over the run, the device-side events (kernels, copies) per
+unit, and the device time by kernel, with the port's own kernels (K1-K4)
+marked. ``--trace`` also writes a Chrome trace into DIR (tens of MB per
+replay).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import time
 import torch
 
 OWN_KERNELS = {"knn_kernel": "K1", "icp_fused_kernel": "K2",
-               "lm_kernel": "K3"}
+               "lm_kernel": "K3", "pcg_kernel": "K4"}
 
 
 def _kernel_label(name: str) -> str:
@@ -37,16 +40,13 @@ def profile(name: str, trace_dir=None) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    from . import replays
     dev = torch.device("cuda", 0)
-    replays.run_replay(name, device=dev, sync=torch.cuda.synchronize)
+    _drive(name, dev)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        per_scan, _, stats = replays.run_replay(
-            name, device=dev, sync=torch.cuda.synchronize)
+        unit, n, extra = _drive(name, dev)
         wall = time.perf_counter() - t0
-    n = len(per_scan)
     rows = []   # device-side events only: kernels, memcpy, memset
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
@@ -62,16 +62,35 @@ def profile(name: str, trace_dir=None) -> dict:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir,
                                               f"trace_{name}.json"))
-    return {"replay": name, "scans": n, "wall_ms_per_scan": 1e3 * wall / n,
-            "device_busy_ms_per_scan": busy_ms / n,
+    return {"run": name, "unit": unit, "units": n,
+            "wall_ms_per_unit": 1e3 * wall / n,
+            "device_busy_ms_per_unit": busy_ms / n,
             "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
-            "device_events_per_scan": events / n,
-            "device_ms_per_scan_by_kernel_group":
+            "device_events_per_unit": events / n,
+            "device_ms_per_unit_by_kernel_group":
                 {k: v / n for k, v in by_label.items()},
             "top_kernels": [{"name": k[:90], "calls": c, "ms": ms,
                              "group": _kernel_label(k)}
-                            for k, c, ms in rows[:15]],
-            "keyframes": stats["n_keyframes"], "loops": stats["n_loops"]}
+                            for k, c, ms in rows[:15]], **extra}
+
+
+def _drive(name: str, dev):
+    """Run a replay, or one optimize of a pose-graph problem; returns
+    (unit, number of units, extra stats)."""
+    from . import replays
+    if name in replays.REPLAYS:
+        per_scan, _, stats = replays.run_replay(
+            name, device=dev, sync=torch.cuda.synchronize)
+        return "scan", len(per_scan), {"keyframes": stats["n_keyframes"],
+                                       "loops": stats["n_loops"]}
+    from .optim.pgo import PGOConfig, optimize_pose_graph
+    from .pgo_problems import named_problem
+    args, _ = named_problem(name, device=dev)
+    _, stats = optimize_pose_graph(*args,
+                                   config=PGOConfig(solver="pcg_pallas"))
+    torch.cuda.synchronize()
+    return "LM iteration", int(stats["iterations"]), {
+        "cg_steps": int(stats["cg_steps"])}
 
 
 def main() -> int:
@@ -85,7 +104,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     for name in args.replays:
-        print(json.dumps(profile(name, args.trace), indent=1))
+        print(json.dumps(profile(name, args.trace), indent=1), flush=True)
     return 0
 
 

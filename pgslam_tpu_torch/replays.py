@@ -100,13 +100,15 @@ REPLAYS = {
 }
 
 
-def run_replay(name: str, device=None, sync=None):
+def run_replay(name: str, device=None, sync=None, config=None):
     """Drive :class:`PoseGraphSlam` over a replay. Returns (per-scan poses
-    ``[n, 4, 4]``, keyframe trajectory, stats). ``sync`` is called after
-    every scan so that the per-scan time covers the device's work."""
+    ``[n, 4, 4]``, keyframe trajectory, stats). ``device`` None means the
+    GPU; ``config`` replaces the replay's own ``SlamConfig``. ``sync`` is
+    called after every scan so that the per-scan time covers the device's
+    work."""
     make_seq, make_cfg, _ = REPLAYS[name]
     scans, odom, _ = make_seq()
-    slam = PoseGraphSlam(make_cfg(), device=device)
+    slam = PoseGraphSlam(config or make_cfg(), device=device)
     T_rs = np.eye(4, dtype=np.float32)
     per_scan, times = [], []
     for i, (scan, T_odom) in enumerate(zip(scans, odom)):

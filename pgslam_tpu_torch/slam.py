@@ -1,6 +1,7 @@
 """PoseGraphSlam facade: builds MapManager -> Optimizer -> LoopCloser ->
 Localizer, wires the notifications, and forwards scans. Counterpart of
-:mod:`pgslam_tpu.slam` (single-threaded). Tensors live on ``device``.
+:mod:`pgslam_tpu.slam` (single-threaded). Tensors live on ``device``
+(the GPU unless the caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -9,9 +10,9 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import numpy as np
-import torch
 
 from .cloud import Cloud, make_cloud
+from .devices import resolve_device
 from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .localizer import Localizer, LocalizerConfig
 from .loopcloser import LoopCloser, LoopCloserConfig
@@ -27,12 +28,12 @@ class SlamConfig:
 
 
 class PoseGraphSlam:
-    """Single-threaded facade. ``device`` ("cpu" or "cuda") is where the
-    clouds and every kernel run."""
+    """Single-threaded facade. ``device`` is where the clouds and every
+    kernel run: the card by default, the CPU with ``device="cpu"``."""
 
     def __init__(self, config: SlamConfig = SlamConfig(), device=None):
         self.config = config
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.map_manager = MapManager()
         self.optimizer = Optimizer(self.map_manager, config.optimizer,
                                    device=self.device)

@@ -18,8 +18,11 @@ from pgslam_tpu_torch.ops.icp import ICPConfig
 from pgslam_tpu_torch.ops.icp_fused import (fused_icp_register,
                                             fused_icp_register_plain)
 from pgslam_tpu_torch.ops.knn import knn, knn_plain
+from pgslam_tpu_torch.optim import pgo
 from pgslam_tpu_torch.optim.lm import lm_optimize
+from pgslam_tpu_torch.optim.pcg import pcg_solve
 from pgslam_tpu_torch.optim.pgo import PGOConfig, lm_optimize_plain
+from pgslam_tpu_torch.pgo_problems import bucketed_problem, pose_graph_problem
 
 pytestmark = pytest.mark.gpu
 
@@ -136,6 +139,93 @@ def test_k3_matches_plain(cuda, robust):
     assert int(sk["iterations"]) == int(sp["iterations"])
     for key in ("initial_cost", "final_cost"):
         torch.testing.assert_close(sk[key], sp[key], atol=0, rtol=1e-3)
+
+
+def _k4_system(cuda, V, n_loop):
+    """One LM step's system at the problem's initial poses."""
+    args, _ = pose_graph_problem(V, n_loop, device=cuda)
+    prob = pgo.LMProblem(*args)
+    blocks, b, D = prob.system(args[0])
+    P_inv, damp = pgo.block_jacobi(D, torch.tensor(1e-6, device=cuda),
+                                   args[1])
+    return (blocks, P_inv, damp, b, prob.prior_info, 0, prob.ef, prob.et)
+
+
+K4_CG = dict(cg_iterations=64, cg_tol=1e-4)
+
+
+@pytest.mark.parametrize("V,n_loop", [(40, 33), (1024, 1025)])
+def test_k4_matches_plain(cuda, V, n_loop):
+    sysargs = _k4_system(cuda, V, n_loop)
+    before = pcg_solve.launches
+    xk, sk = pcg_solve(*sysargs, **K4_CG, return_iterations=True)
+    xp, sp = pgo.pcg_solve_plain(*sysargs, **K4_CG, return_iterations=True)
+    torch.cuda.synchronize()
+    assert pcg_solve.launches == before + 1
+    assert int(sk) == sp
+    # fp32 CG with another summation order
+    assert float((xk - xp).abs().max()) <= 1e-3 * float(xp.abs().max())
+
+
+def test_k4_repeats_bitwise(cuda):
+    sysargs = _k4_system(cuda, 1024, 1025)
+    x1 = pcg_solve(*sysargs, **K4_CG)
+    x2 = pcg_solve(*sysargs, **K4_CG)
+    assert torch.equal(x1, x2)
+    assert pcg_solve.grid > 1
+
+
+def test_k4_rejects_bad_input(cuda):
+    blocks, P_inv, damp, b, prior, fixed, ef, et = _k4_system(cuda, 40, 33)
+    bad = [((blocks[0].double(),) + blocks[1:], P_inv, b),
+           (blocks, P_inv[:-1], b),
+           (blocks, P_inv, torch.zeros((6, 40), device=cuda).T)]
+    for blk, Pi, bb in bad:
+        with pytest.raises(ValueError):
+            pcg_solve(blk, Pi, damp, bb, prior, fixed, ef, et, **K4_CG)
+
+
+def test_padded_edges_left_out_of_csr_exactly(cuda):
+    """Padded edges carry zero blocks, so K4 gives the same bits with them
+    out of its CSR lists, and K3 (which leaves them out) still agrees with
+    its plain version on a padded graph."""
+    from pgslam_tpu_torch.optim.lm import edge_csr
+    args, _ = bucketed_problem(768, 128, device=cuda)
+    V, emask = args[0].shape[0], args[6]
+    assert not bool(emask.all())
+    prob = pgo.LMProblem(*args)
+    blocks, b, D = prob.system(args[0])
+    P_inv, damp = pgo.block_jacobi(D, torch.tensor(1e-6, device=cuda),
+                                   args[1])
+    sysargs = (blocks, P_inv, damp, b, prob.prior_info, 0, prob.ef, prob.et)
+    x_all = pcg_solve(*sysargs, **K4_CG, csr=edge_csr(prob.ef, prob.et, V))
+    x_valid = pcg_solve(*sysargs, **K4_CG,
+                        csr=edge_csr(prob.ef, prob.et, V, emask))
+    assert torch.equal(x_all, x_valid)
+    cfg = PGOConfig(max_iterations=4, cg_iterations=16, cg_tol=1e-3)
+    pk, sk = lm_optimize(*args, config=cfg)
+    pp, sp = lm_optimize_plain(*args, config=cfg)
+    assert float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max()) < 1e-4
+    assert int(sk["iterations"]) == int(sp["iterations"])
+
+
+def test_pcg_routes_to_k4_above_threshold(cuda):
+    """The padded shapes of ``pgo_1k`` (V = 1024, E = 2048) stay on K3 and
+    those of a 1536-pose run (V = E = 2048) go to the loop with K4."""
+    cfg = PGOConfig(max_iterations=2, cg_iterations=16, cg_tol=1e-3)
+    for (n, n_loop), kernel in (((1024, 1025), lm_optimize),
+                                ((1536, 256), pcg_solve)):
+        args, _ = bucketed_problem(n, n_loop, device=cuda)
+        V, E = args[0].shape[0], args[2].shape[0]
+        assert (V + E <= pgo.K3_MAX_SIZE) == (kernel is lm_optimize)
+        before = (lm_optimize.launches, pcg_solve.launches)
+        out, stats = pgo.optimize_pose_graph(*args, config=cfg)
+        torch.cuda.synchronize()
+        after = (lm_optimize.launches, pcg_solve.launches)
+        ran = [a > b for a, b in zip(after, before)]
+        assert ran == [kernel is lm_optimize, kernel is pcg_solve]
+        assert torch.isfinite(out).all()
+        assert float(stats["final_cost"]) < float(stats["initial_cost"])
 
 
 def test_loop_replay_launches_every_kernel(cuda):

@@ -1,6 +1,7 @@
 """K3 (the whole LM optimize): the port's plain LM against the JAX XLA LM
 (and the Pallas kernel in interpret mode, slow tier). The CUDA kernel is
-held against the plain LM in tests/test_torch_gpu.py."""
+held against the plain LM in tests/test_torch_gpu.py; the other solvers
+are in tests/test_torch_pcg.py."""
 
 import jax
 import jax.numpy as jnp
@@ -114,10 +115,22 @@ def test_edge_csr_order():
     assert ent.tolist() == [0, 6, 5, 2, 1, 4, 3, 7]
 
 
-def test_unported_solvers_raise():
+def test_edge_csr_leaves_out_masked_edges():
+    """Padded edges (all at vertex 0, as ``Optimizer`` pads) fall out of
+    the lists; the valid edges keep their order."""
+    ef = torch.tensor([0, 1, 2, 0, 0, 0], dtype=torch.int32)
+    et = torch.tensor([1, 2, 0, 2, 0, 0], dtype=torch.int32)
+    emask = torch.tensor([True, True, True, True, False, False])
+    ptr, ent = edge_csr(ef, et, 3, emask)
+    assert ptr.tolist() == [0, 3, 5, 8]
+    assert ent[:8].tolist() == [0, 6, 5, 2, 1, 4, 3, 7]
+    assert sorted(ent[8:].tolist()) == [8, 9, 10, 11]
+
+
+def test_unknown_robust_kernel_raises():
     args, rmask = _ring_problem()
-    with pytest.raises(NotImplementedError):
-        _port(args, rmask, dict(solver="cholesky"), "none")
+    with pytest.raises(ValueError):
+        _port(args, rmask, {}, "tukey")
 
 
 @pytest.mark.slow

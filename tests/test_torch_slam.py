@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from pgslam_tpu_torch import replays
 
@@ -54,7 +55,8 @@ _BLOCK_JAX = (
     "import pgslam_tpu_torch, chip_smoke\n"
     "import pgslam_tpu_torch.slam, pgslam_tpu_torch.replays\n"
     "import pgslam_tpu_torch.convert, pgslam_tpu_torch.optim.lm\n"
-    "import pgslam_tpu_torch.ops.icp_fused\n"
+    "import pgslam_tpu_torch.ops.icp_fused, pgslam_tpu_torch.optim.pcg\n"
+    "import pgslam_tpu_torch.pgo_problems, pgslam_tpu_torch.profile_replay\n"
     "print('imported')\n")
 
 
@@ -91,8 +93,44 @@ def test_unported_paths_raise():
         bad = dataclasses.replace(cfg, localizer=dataclasses.replace(
             cfg.localizer, **loc))
         with pytest.raises(NotImplementedError):
-            replays.PoseGraphSlam(bad)
+            replays.PoseGraphSlam(bad, device="cpu")
     bad = dataclasses.replace(cfg, loop_closer=dataclasses.replace(
         cfg.loop_closer, deferred_verification=True))
     with pytest.raises(NotImplementedError):
-        replays.PoseGraphSlam(bad)
+        replays.PoseGraphSlam(bad, device="cpu")
+
+
+def _entry_points():
+    from pgslam_tpu_torch.graph.pose_graph import MapManager
+    from pgslam_tpu_torch.localizer import Localizer
+    from pgslam_tpu_torch.loopcloser import LoopCloser
+    from pgslam_tpu_torch.optimizer import Optimizer
+    return {
+        "PoseGraphSlam": lambda **kw: replays.PoseGraphSlam(
+            replays.loop_config(), **kw).device,
+        "Optimizer": lambda **kw: Optimizer(MapManager(), **kw).device,
+        "LoopCloser": lambda **kw: LoopCloser(
+            MapManager(), None, replays.loop_config().loop_closer,
+            **kw).device,
+        "Localizer": lambda **kw: Localizer(MapManager(), **kw).device,
+    }
+
+
+@pytest.mark.parametrize("name", ["PoseGraphSlam", "Optimizer", "LoopCloser",
+                                  "Localizer"])
+def test_entry_points_default_to_the_gpu(name):
+    make = _entry_points()[name]
+    assert make(device="cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert make().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_run_replay_defaults_to_the_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("with CUDA the default replay runs on the card; "
+                    "tests/test_torch_gpu.py drives it there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        replays.run_replay("loop")
