@@ -10,6 +10,11 @@ version beside it that runs on CPU tensors.
     slam = PoseGraphSlam(config)      # on the GPU; device="cpu" for the CPU
     slam.add_data(timestamp, frame_id, T_world_robot, T_robot_sensor, cloud)
 
+    fleet = MultiAgentSlam(config, n_agents=16)   # one shared pose graph
+    fleet.add_data_batch(timestamp, frame_id, T_world_robots, T_robot_sensor,
+                         clouds)
+    result = batched_register(readings, references, T_inits, icp_config)
+
 This package imports torch and numpy only, never jax or pgslam_tpu.
 """
 
@@ -28,7 +33,8 @@ from .ops.icp import ICPConfig, ICPEngine, ICPResult  # noqa: E402,F401
 
 __all__ = ["se3", "metrics", "Cloud", "make_cloud", "transform_cloud",
            "ICPConfig", "ICPEngine", "ICPResult", "PoseGraphSlam",
-           "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals"]
+           "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals",
+           "MultiAgentSlam", "batched_register"]
 
 
 def __getattr__(name):
@@ -38,5 +44,11 @@ def __getattr__(name):
     if name in ("PGOConfig", "optimize_pose_graph", "pose_marginals"):
         from .optim import pgo
         return getattr(pgo, name)
+    if name == "MultiAgentSlam":
+        from .parallel.multi_agent import MultiAgentSlam
+        return MultiAgentSlam
+    if name == "batched_register":
+        from .parallel.batched import batched_register
+        return batched_register
     raise AttributeError(f"module 'pgslam_tpu_torch' has no attribute "
                          f"{name!r}")

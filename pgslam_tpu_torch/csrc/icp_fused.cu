@@ -14,14 +14,25 @@
 //           cross-covariance; identity step below MIN_SUPPORT;
 //   check   iteration cap and the smoothed differential checker;
 //   final   overlap, residual and the 6x6 covariance at the solution.
-// An optional coarse stage runs first on reading[::coarse_div]. The bound
-// checker and NaN guard run in the Python wrapper.
+// An optional coarse stage runs first on reading[::coarse_div]. With
+// anderson_m in 2..4 both stages run the Anderson-accelerated update
+// (icp_pallas.py::run_stage_aa, the plain version's _stage_aa): type-II AA
+// on the window of the last m se3-log twists relative to the stage entry,
+// the (m-1)x(m-1) system solved in closed form, the extrapolation kept only
+// within twice the plain step once the window has filled; the checker then
+// reads dTm = T_new T^-1. The bound checker and NaN guard run in the Python
+// wrapper.
 //
 // Design: blockIdx.x is the registration. 512 threads; each thread owns up
 // to PPT reading points per pass, keeping their running best match in
 // registers while map tiles of TILE points stream through shared memory.
 // Per-point results go to global scratch; weighted moments are fixed-order
-// block reductions; thread 0 does the 6x6 solve and the SE(3) update.
+// block reductions; thread 0 does the 6x6 solve and the SE(3) update. The
+// AA update is thread 0's too: two twist logs, a 3x3 solve and one exp per
+// iteration, a few hundred flops beside the matcher's NQ x NR pair
+// evaluations, which still bound the kernel. Blocks share nothing, so a
+// batch of B registrations is B independent blocks (the fleet launches 16
+// and 128); scratch and outputs are indexed by blockIdx.x alone.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,6 +47,7 @@ constexpr int PPT = 4;
 constexpr int CHUNK = NT * PPT;
 constexpr int TILE = NT;
 constexpr int MAXL = 8;
+constexpr int MAXM = 4;  // Anderson window
 constexpr float MIN_SUPPORT = 6.0f;
 constexpr int SCR = 10;  // per point: pp[3], q[3], n[3], d2
 
@@ -59,7 +71,7 @@ struct Problem {
   int nr;
   float* scr;          // [NQ, SCR]
   float trans_eps, rot_eps, trim, maxd2;
-  int p2plane, max_it, coarse_it, L;
+  int p2plane, max_it, coarse_it, L, aa_m;
 };
 
 __device__ __forceinline__ float sqn(float x, float y, float z) {
@@ -276,6 +288,93 @@ __device__ void p2point_delta(const Problem& P, Shared& sh, int n,
   }
 }
 
+// Sum of a[i] * b[i], each product rounded and added left to right (the
+// plain version's order, no contraction into FMAs).
+__device__ __forceinline__ float dot_rn(const float* a, const float* b,
+                                       int n) {
+  float acc = __fmul_rn(a[0], b[0]);
+  for (int i = 1; i < n; ++i) acc = __fadd_rn(acc, __fmul_rn(a[i], b[i]));
+  return acc;
+}
+
+// The Anderson window of one stage (thread 0): newest twist first.
+struct Anderson {
+  float X[MAXM * 6], GX[MAXM * 6];
+  float T0[16], Tinv0[16];
+};
+
+// Closed-form solve of the n x n (n <= 3) system A g = r, A row-major 3x3.
+__device__ void solve_small(const float* A, const float* r, int n, float* g) {
+  if (n == 1) {
+    g[0] = r[0] / A[0];
+  } else if (n == 2) {
+    const float rdet =
+        1.f / __fsub_rn(__fmul_rn(A[0], A[4]), __fmul_rn(A[1], A[3]));
+    g[0] = __fmul_rn(__fsub_rn(__fmul_rn(A[4], r[0]), __fmul_rn(A[1], r[1])),
+                     rdet);
+    g[1] = __fmul_rn(__fsub_rn(__fmul_rn(A[0], r[1]), __fmul_rn(A[3], r[0])),
+                     rdet);
+  } else {
+    float Ai[9];
+    pgs::inv3(A, Ai);
+    for (int i = 0; i < 3; ++i) g[i] = dot_rn(Ai + 3 * i, r, 3);
+  }
+}
+
+// One AA update: from the current T and the plain step's T_plain, write
+// T_new and the checker's translation and rotation sizes of T_new T^-1.
+__device__ void anderson_update(Anderson& aa, int m, int it, const float* T,
+                                const float* Tp, float* Tn, float* dt,
+                                float* dr) {
+  float M[16], xk[6], gk[6];
+  pgs::mat4_mul(T, aa.Tinv0, M);
+  pgs::se3_log(M, xk);
+  pgs::mat4_mul(Tp, aa.Tinv0, M);
+  pgs::se3_log(M, gk);
+  for (int i = m - 1; i > 0; --i)
+    for (int d = 0; d < 6; ++d) {
+      aa.X[6 * i + d] = aa.X[6 * (i - 1) + d];
+      aa.GX[6 * i + d] = aa.GX[6 * (i - 1) + d];
+    }
+  for (int d = 0; d < 6; ++d) { aa.X[d] = xk[d]; aa.GX[d] = gk[d]; }
+  float Fr[MAXM][6], dF[MAXM - 1][6], dGt[6][MAXM - 1];
+  for (int i = 0; i < m; ++i)
+    for (int d = 0; d < 6; ++d)
+      Fr[i][d] = __fsub_rn(aa.GX[6 * i + d], aa.X[6 * i + d]);
+  const int n = m - 1;
+  for (int i = 0; i < n; ++i)
+    for (int d = 0; d < 6; ++d) {
+      dF[i][d] = __fsub_rn(Fr[0][d], Fr[i + 1][d]);
+      dGt[d][i] = __fsub_rn(aa.GX[d], aa.GX[6 * (i + 1) + d]);
+    }
+  float A[9], rhs[3], gamma[3];
+  for (int i = 0; i < n; ++i) {
+    for (int j = 0; j < n; ++j)
+      A[3 * i + j] = __fadd_rn(dot_rn(dF[i], dF[j], 6), i == j ? 1e-10f : 0.f);
+    rhs[i] = dot_rn(dF[i], Fr[0], 6);
+  }
+  solve_small(A, rhs, n, gamma);
+  float xacc[6], dp[6], da[6];
+  for (int d = 0; d < 6; ++d) {
+    xacc[d] = __fsub_rn(gk[d], dot_rn(gamma, dGt[d], n));
+    dp[d] = __fsub_rn(gk[d], xk[d]);
+    da[d] = __fsub_rn(xacc[d], gk[d]);
+  }
+  const float plain_sz = sqrtf(dot_rn(dp, dp, 6));
+  const float acc_sz = sqrtf(dot_rn(da, da, 6));
+  const bool ok = acc_sz <= __fadd_rn(__fmul_rn(2.f, plain_sz), 1e-9f) &&
+                  it + 1 >= m;
+  float xn[6], E[16], Ti[16], dT[16], dl[6];
+  for (int d = 0; d < 6; ++d) xn[d] = ok ? xacc[d] : gk[d];
+  pgs::se3_exp(xn, E);
+  pgs::mat4_mul(E, aa.T0, Tn);
+  pgs::se3_inv(T, Ti);
+  pgs::mat4_mul(Tn, Ti, dT);
+  pgs::se3_log(dT, dl);
+  *dt = sqrtf(sqn(dT[3], dT[7], dT[11]));
+  *dr = sqrtf(sqn(dl[3], dl[4], dl[5]));
+}
+
 // One stage of the iterate loop on reading[::stride]; updates sh.T.
 __device__ int run_stage(const Problem& P, Shared& sh, int stride, int n,
                          int max_it, int* converged) {
@@ -283,7 +382,15 @@ __device__ int run_stage(const Problem& P, Shared& sh, int stride, int n,
 #pragma unroll
   for (int k = 0; k < MAXL; ++k) { dts[k] = INFINITY; drs[k] = INFINITY; }
   int it = 0;
-  if (threadIdx.x == 0) sh.flag = 0;
+  Anderson aa;  // thread 0's, used when P.aa_m > 1
+  if (threadIdx.x == 0) {
+    sh.flag = 0;
+    if (P.aa_m > 1) {
+      for (int k = 0; k < 16; ++k) aa.T0[k] = sh.T[k];
+      pgs::se3_inv(aa.T0, aa.Tinv0);
+      for (int k = 0; k < MAXM * 6; ++k) { aa.X[k] = 0.f; aa.GX[k] = 0.f; }
+    }
+  }
   __syncthreads();
   while (it < max_it && !sh.flag) {
     match(P, sh, stride, n);
@@ -309,10 +416,20 @@ __device__ int run_stage(const Problem& P, Shared& sh, int stride, int n,
       if (threadIdx.x == 0) pgs::se3_log(delta, x);
     }
     if (threadIdx.x == 0) {
-      pgs::mat4_mul(delta, sh.T, sh.T);
+      float dt, dr;
+      if (P.aa_m > 1) {
+        float Tp[16], Tn[16];
+        pgs::mat4_mul(delta, sh.T, Tp);
+        anderson_update(aa, P.aa_m, it, sh.T, Tp, Tn, &dt, &dr);
+        for (int k = 0; k < 16; ++k) sh.T[k] = Tn[k];
+      } else {
+        pgs::mat4_mul(delta, sh.T, sh.T);
+        dt = sqrtf(sqn(delta[3], delta[7], delta[11]));
+        dr = sqrtf(sqn(x[3], x[4], x[5]));
+      }
       for (int k = P.L - 1; k > 0; --k) { dts[k] = dts[k - 1]; drs[k] = drs[k - 1]; }
-      dts[0] = sqrtf(sqn(delta[3], delta[7], delta[11]));
-      drs[0] = sqrtf(sqn(x[3], x[4], x[5]));
+      dts[0] = dt;
+      drs[0] = dr;
       float st = 0.f, sr = 0.f;
       for (int k = 0; k < P.L; ++k) { st += dts[k]; sr += drs[k]; }
       sh.flag = (st / (float)P.L < P.trans_eps) && (sr / (float)P.L < P.rot_eps);
@@ -350,6 +467,7 @@ icp_fused_kernel(const float* __restrict__ reading, const bool* rdmask, int nq,
   P.max_it = iparams[1];
   P.coarse_it = iparams[2];
   P.L = iparams[3];
+  P.aa_m = iparams[4];
   if (threadIdx.x < 16) sh.T[threadIdx.x] = T0[(size_t)b * 16 + threadIdx.x];
   __syncthreads();
 

@@ -67,6 +67,28 @@ def render_scan(world: np.ndarray, T_world_sensor: np.ndarray, rng,
     return local.astype(np.float32)
 
 
+def corridor_sequence(rng, n_scans: int = 200, scan_points: int = 1000,
+                      step: float = 0.25, noise: float = 0.005,
+                      odom_noise: float = 0.01, length: float = 60.0
+                      ) -> Tuple[List[np.ndarray], List[np.ndarray],
+                                 List[np.ndarray]]:
+    """Straight corridor run (BASELINE config 2). Returns (scans, odometry
+    poses with drift, true poses)."""
+    world = corridor_world(rng, length=length)
+    scans, odom, truth = [], [], []
+    T_odom = _se3(1.0, 0.0, 1.2)
+    for i in range(n_scans):
+        T_true = _se3(1.0 + i * step, 0.0, 1.2)
+        scans.append(render_scan(world, T_true, rng, scan_points,
+                                 noise=noise))
+        if i > 0:
+            d = np.array([step, 0, 0]) + rng.normal(size=3) * odom_noise
+            T_odom = T_odom @ _se3(*d)
+        truth.append(T_true)
+        odom.append(T_odom.copy())
+    return scans, odom, truth
+
+
 def loop_world(rng, n_points: int = 40000, radius: float = 12.0,
                width: float = 4.0, height: float = 3.0) -> np.ndarray:
     """An annular corridor with aperiodic boxes and pillars."""

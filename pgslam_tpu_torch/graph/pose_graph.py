@@ -127,7 +127,7 @@ def _grow(arr: np.ndarray, n: int) -> np.ndarray:
 
 
 class MapManager:
-    """Sole owner of the pose graph; notifies the localizer and the loop
+    """Sole owner of the pose graph; notifies the localizers and the loop
     closer."""
 
     def __init__(self):
@@ -139,6 +139,11 @@ class MapManager:
 
     def set_localizer(self, localizer) -> None:
         self._localizers = [localizer]
+
+    def add_localizer(self, localizer) -> None:
+        """Register one more localizer: a fleet's agents share the graph,
+        and every one of them resyncs after an optimization writeback."""
+        self._localizers.append(localizer)
 
     def set_loop_closer(self, loop_closer) -> None:
         self._loop_closer = loop_closer

@@ -2,7 +2,11 @@
 and local-map composition management. Counterpart of the classic per-scan
 path of :mod:`pgslam_tpu.localizer` (``sync_lag=0``, ``micro_batch=0``,
 no forced deferral): the same decision tree, the same overlap-probe
-cache, and the same fp64 host re-anchoring.
+cache, and the same fp64 host re-anchoring. The fleet
+(:class:`~pgslam_tpu_torch.parallel.multi_agent.MultiAgentSlam`) drives
+the split entry points instead: :meth:`Localizer.prepare_scan`,
+:meth:`Localizer.begin_finish`, :meth:`Localizer.decide_composition`,
+``apply_composition(build=False)`` and the deferred graph resync.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from .cloud import Cloud, dequantize_cloud, transform_cloud
 from .devices import resolve_device
 from .graph.pose_graph import MapManager
 from .graph.shortest_path import dijkstra
-from .localmap import Composition, LocalMap, build_cloud, stack_composition
+from .localmap import Composition, LocalMap, build_cloud, stack_compositions
 from .ops import filters as F
 from .ops.icp import (ICPConfig, ICPEngine, ICPResult, compute_overlap,
                       icp_core, to_host)
@@ -73,6 +77,40 @@ def prepare_input(chain, capacity: int, cloud: Cloud,
     return transform_cloud(T_robot_sensor, F.compact(cloud, capacity))
 
 
+def prepare_input_batched(chain, capacity: int, clouds, T_robot_sensors,
+                          reading_chain=()):
+    """A fleet's input preparation (``_prepare_input_batched``): per agent
+    :func:`prepare_input`, then the reading filter chain. Returns the
+    prepared clouds and readings, one each per agent."""
+    prepped = [prepare_input(chain, capacity, c, T)
+               for c, T in zip(clouds, T_robot_sensors)]
+    return prepped, [F.apply_chain(reading_chain, c) for c in prepped]
+
+
+def probe_build_batched(points, masks, descs, Ts, slot_valid, desc_keys,
+                        T_world_refs, ref_chain):
+    """Candidate maps of the overlap probe for a batch of compositions
+    (stacked by :func:`localmap.stack_compositions`): one batched build,
+    then per map the move to the world frame and the reference filter
+    chain."""
+    pts, mask, desc = build_cloud(points, masks, descs, Ts, slot_valid,
+                                  desc_keys)
+    T = torch.as_tensor(np.asarray(T_world_refs, np.float32),
+                        device=pts.device)
+    worlds = transform_cloud(T, Cloud(points=pts, mask=mask,
+                                      descriptors=desc))
+    return [F.apply_chain(ref_chain, worlds.map(lambda a: a[i]))
+            for i in range(pts.shape[0])]
+
+
+def probe_overlap_from_batched(readings, worlds, T_world_robots,
+                               cfg: ICPConfig) -> torch.Tensor:
+    """Overlap of each reading against its pre-built candidate map at its
+    world pose (``_probe_overlap_from_batched``)."""
+    return torch.stack([compute_overlap(r, w, T, cfg) for r, w, T
+                        in zip(readings, worlds, T_world_robots)])
+
+
 class Localizer:
 
     def __init__(self, map_manager: MapManager,
@@ -95,6 +133,13 @@ class Localizer:
         self.input_cloud: Optional[Cloud] = None
         self.last_result: Optional[ICPResult] = None
         self._probe_cache: dict = {}
+        # The scan's prepared reading, reused by the overlap probe.
+        self._last_reading: Optional[Cloud] = None
+        # Fleet mode: an optimization writeback only flags the resync
+        # (the MT variant's outdated flag); the fleet runs it, batched,
+        # at its next step.
+        self.defer_graph_resync = False
+        self._needs_resync = False
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -110,23 +155,11 @@ class Localizer:
     def process_data(self, input_T_world_robot: np.ndarray,
                      input_T_robot_sensor: np.ndarray,
                      input_cloud: Cloud) -> None:
-        log.info("[Localizer] Processing cloud #%d", self.count)
-        self.count += 1
-        cloud = prepare_input(self.config.input_filters,
-                              self.config.keyframe_cloud_capacity,
-                              input_cloud, self._tensor(input_T_robot_sensor))
-        self.input_cloud = cloud
-        if not self.local_map.has_cloud():
-            self.process_first_cloud(cloud, input_T_world_robot)
-            self.last_input_T_world_robot = np.asarray(input_T_world_robot,
-                                                       np.float32)
+        prep = self.prepare_scan(input_T_world_robot, input_T_robot_sensor,
+                                 input_cloud)
+        if prep is None:
             return
-        # Odometry-predicted initial guess (host, fp64 increment).
-        input_dT_robot = (
-            np.linalg.inv(np.asarray(self.last_input_T_world_robot,
-                                     np.float64))
-            @ np.asarray(input_T_world_robot, np.float64)).astype(np.float32)
-        input_T_refkf_robot = self.T_refkf_robot @ input_dT_robot
+        reading, input_T_refkf_robot = prep
         # The neighbour probe's candidate is chosen from the predicted
         # pose and evaluated at the post-ICP pose, as the JAX package's
         # one-dispatch scan path does.
@@ -135,8 +168,6 @@ class Localizer:
             np.float32)
         probe_comp = self.neighbor_probe_request(
             T_world_robot=T_world_refkf @ input_T_refkf_robot)
-
-        reading = self.icp_engine.prepare_reading(cloud)
 
         result = icp_core(reading, self.icp_engine.reference,
                           self._tensor(input_T_refkf_robot),
@@ -152,6 +183,37 @@ class Localizer:
         self.apply_composition()
         self.last_input_T_world_robot = np.asarray(input_T_world_robot,
                                                    np.float32)
+
+    def prepare_scan(self, input_T_world_robot, input_T_robot_sensor,
+                     input_cloud: Cloud, prepared: Optional[Cloud] = None,
+                     reading: Optional[Cloud] = None):
+        """Everything before the registration (the per-scan path's, and a
+        batcher's that registers many agents at once). Returns (reading,
+        odometry-predicted initial transform as host float32) or None when
+        this was the first cloud (fully handled). ``prepared`` and
+        ``reading`` carry the batcher's input preparation and reading
+        filters."""
+        log.info("[Localizer] Processing cloud #%d", self.count)
+        self.count += 1
+        cloud = prepared if prepared is not None else prepare_input(
+            self.config.input_filters, self.config.keyframe_cloud_capacity,
+            input_cloud, self._tensor(input_T_robot_sensor))
+        self.input_cloud = cloud
+        if not self.local_map.has_cloud():
+            self.process_first_cloud(cloud, input_T_world_robot)
+            self.last_input_T_world_robot = np.asarray(input_T_world_robot,
+                                                       np.float32)
+            return None
+        # Odometry-predicted initial guess (host, fp64 increment).
+        input_dT_robot = (
+            np.linalg.inv(np.asarray(self.last_input_T_world_robot,
+                                     np.float64))
+            @ np.asarray(input_T_world_robot, np.float64)).astype(np.float32)
+        input_T_refkf_robot = self.T_refkf_robot @ input_dT_robot
+        if reading is None:
+            reading = self.icp_engine.prepare_reading(cloud)
+        self._last_reading = reading
+        return reading, input_T_refkf_robot
 
     def begin_finish(self, result: ICPResult) -> ICPResult:
         """Pose composition from a host-side ICP result."""
@@ -215,17 +277,25 @@ class Localizer:
             log.info("[Localizer] next composition = %s",
                      self.next_composition)
 
-    def apply_composition(self) -> bool:
-        """Rebuild the local map if the composition changed."""
+    def apply_composition(self, build: bool = True) -> bool:
+        """Rebuild the local map if the composition changed. With
+        ``build=False`` only the snapshots are taken and the pose
+        re-anchored; the caller builds the cloud (batched) and then runs
+        :meth:`finish_apply`."""
         if self.local_map.has_same_composition(self.next_composition):
             return False
         old_ref = self.local_map.reference_vertex()
-        self.local_map.update_to_new_composition(self.mm.get_graph(),
-                                                 self.next_composition)
+        self.local_map.update_to_new_composition(
+            self.mm.get_graph(), self.next_composition, build=build)
         if self.local_map.reference_vertex() != old_ref:
             self.update_refkf_robot_pose()
-        self.icp_engine.set_map(self.local_map.cloud())
+        if build:
+            self.finish_apply()
         return True
+
+    def finish_apply(self) -> None:
+        """Install the (re)built local-map cloud as the ICP reference."""
+        self.icp_engine.set_map(self.local_map.cloud())
 
     def update_refkf_robot_pose(self) -> None:
         Tinv = _rigid_inverse(
@@ -242,18 +312,31 @@ class Localizer:
     # -- graph-update notification -----------------------------------------
 
     def update_from_graph(self) -> None:
-        """Post-optimization resync: rebuild an outdated local map and
-        re-anchor the world pose on a moved reference keyframe."""
-        if not self.local_map.has_cloud():
+        """Post-optimization notification: resync now, or flag it for the
+        fleet's next step (``defer_graph_resync``)."""
+        if self.defer_graph_resync:
+            self._needs_resync = True
             return
+        self.resync_from_graph()
+
+    def resync_from_graph(self, build: bool = True) -> bool:
+        """Rebuild an outdated local map and re-anchor the world pose on a
+        moved reference keyframe. Returns whether the local map is
+        outdated; with ``build=False`` only its snapshots are refreshed
+        and the caller builds it (batched)."""
+        self._needs_resync = False
+        if not self.local_map.has_cloud():
+            return False
         graph = self.mm.get_graph()
         lm_outdated = self.local_map.is_outdated(graph)
         ref_outdated = self.local_map.is_reference_keyframe_outdated(graph)
         if lm_outdated:
-            self.local_map.update_from_graph(graph)
-            self.icp_engine.set_map(self.local_map.cloud())
+            self.local_map.update_from_graph(graph, build=build)
+            if build:
+                self.finish_apply()
         if ref_outdated:
             self.update_world_robot_pose()
+        return lm_outdated
 
     # -- overlap logic -----------------------------------------------------
 
@@ -266,24 +349,34 @@ class Localizer:
     def _cached_probe_map(self, comp: Composition) -> Cloud:
         """The candidate map in the world frame after the reference
         filters, cached per (composition, member update times)."""
+        world = self._probe_cache_get(comp)
+        if world is None:
+            world = probe_build_batched(
+                *stack_compositions(self.mm.get_graph(), [comp.as_list()],
+                                    comp.capacity),
+                self.config.icp.reference_filters)[0]
+            self._probe_cache_put(comp, world)
+        return world
+
+    def _probe_key(self, comp: Composition):
         graph = self.mm.get_graph()
         key = tuple(comp.as_list())
-        times = tuple(int(graph.update_times[v]) for v in key)
+        return key, tuple(int(graph.update_times[v]) for v in key)
+
+    def _probe_cache_get(self, comp: Composition) -> Optional[Cloud]:
+        """The cached candidate map, or None (the fleet builds every miss
+        in one batched build)."""
+        key, times = self._probe_key(comp)
         hit = self._probe_cache.get(key)
         if hit is not None and hit[0] == times:
             return hit[1]
-        points, masks, descs, Ts, slot_valid, desc_keys, T_world_ref = \
-            stack_composition(graph, comp.as_list(), comp.capacity)
-        pts, mask, desc = build_cloud(points, masks, descs, Ts, slot_valid,
-                                      desc_keys)
-        world = transform_cloud(self._tensor(T_world_ref),
-                                Cloud(points=pts, mask=mask,
-                                      descriptors=desc))
-        world = F.apply_chain(self.config.icp.reference_filters, world)
+        return None
+
+    def _probe_cache_put(self, comp: Composition, world: Cloud) -> None:
+        key, times = self._probe_key(comp)
         if len(self._probe_cache) >= 8:
             self._probe_cache.pop(next(iter(self._probe_cache)))
         self._probe_cache[key] = (times, world)
-        return world
 
     # -- neighbour-composition search --------------------------------------
 

@@ -52,58 +52,118 @@ class Composition:
 def build_cloud(points, masks, descs, T_refkf_kf, slot_valid,
                 desc_keys: Tuple[str, ...]):
     """Transform each keyframe cloud into the reference frame and flatten:
-    ``[C, N, ...] -> [C*N, ...]``."""
+    ``[..., C, N, ...] -> [..., C*N, ...]`` (leading dimensions are a batch
+    of compositions)."""
+    lead = points.shape[:-3]
     pts = se3.apply(T_refkf_kf, points)
-    mask = masks & slot_valid[:, None]
+    mask = masks & slot_valid[..., None]
     out_desc = {}
     for k in desc_keys:
         v = descs[k]
         if k in ROTATED_DESCRIPTORS and v.shape[-1] == 3:
             v = se3.rotate(T_refkf_kf, v)
-        out_desc[k] = v.reshape(-1, v.shape[-1])
-    return pts.reshape(-1, 3), mask.reshape(-1), out_desc
+        out_desc[k] = v.reshape(*lead, -1, v.shape[-1])
+    return pts.reshape(*lead, -1, 3), mask.reshape(*lead, -1), out_desc
 
 
 def stack_keyframes(kfs, capacity: int):
     """Stack keyframe clouds and their poses relative to the last one into
     the fixed-shape inputs of :func:`build_cloud`. Returns (points, masks,
     descs, T_refkf_kf, slot_valid, desc_keys, T_world_ref)."""
-    ref = kfs[-1]
-    C = capacity
-    T_ref = np.asarray(ref.optimized_T_world_kf, np.float64)
-    T_refkf_world = np.linalg.inv(T_ref)
-    caps = {kf.cloud.capacity for kf in kfs}
-    if len(caps) != 1:
-        raise ValueError(
-            f"composition requires equal keyframe cloud capacities: {caps}")
-    n = caps.pop()
-    dev = ref.cloud.device
-    desc_keys = tuple(sorted(kfs[0].cloud.descriptors.keys()))
+    points, masks, descs, Ts, slot_valid, desc_keys, T_refs = _stack_many(
+        [kfs], capacity)
+    return (points[0], masks[0], {k: v[0] for k, v in descs.items()}, Ts[0],
+            slot_valid[0], desc_keys, T_refs[0])
 
-    def pad(arrs, fill):
-        return arrs + [fill] * (C - len(arrs))
 
-    points = torch.stack(pad([kf.cloud.points for kf in kfs],
-                             torch.zeros((n, 3), device=dev)))
-    masks = torch.stack(pad([kf.cloud.mask for kf in kfs],
-                            torch.zeros(n, dtype=torch.bool, device=dev)))
-    descs = {}
-    for k in desc_keys:
-        d = kfs[0].cloud.descriptors[k].shape[-1]
-        descs[k] = torch.stack(pad([kf.cloud.descriptors[k] for kf in kfs],
-                                   torch.zeros((n, d), device=dev)))
-    Ts = np.stack(pad(
-        [(T_refkf_world @ np.asarray(kf.optimized_T_world_kf, np.float64)
-          ).astype(np.float32) for kf in kfs],
-        np.eye(4, dtype=np.float32)))
-    slot_valid = torch.as_tensor([True] * len(kfs) + [False] * (C - len(kfs)),
+def _stack_many(kf_lists, capacity: int):
+    """Stack several keyframe windows into ``[M, C, ...]`` inputs of
+    :func:`build_cloud` (each window padded to ``capacity`` slots).
+    Returns (points, masks, descs, T_refkf_kf, slot_valid, desc_keys,
+    T_world_refs ``[M, 4, 4]`` host numpy)."""
+    M, C = len(kf_lists), capacity
+    kf0 = kf_lists[0][-1]
+    ncap = kf0.cloud.capacity
+    dev = kf0.cloud.device
+    desc_keys = tuple(sorted(kf0.cloud.descriptors.keys()))
+    zero_pts = torch.zeros((ncap, 3), device=dev)
+    zero_mask = torch.zeros(ncap, dtype=torch.bool, device=dev)
+    zero_desc = {k: torch.zeros((ncap, kf0.cloud.descriptors[k].shape[-1]),
+                                device=dev) for k in desc_keys}
+    pts_l, mask_l, Ts_l, valid_l, T_refs = [], [], [], [], []
+    desc_l = {k: [] for k in desc_keys}
+    for kfs in kf_lists:
+        if len(kfs) > C:
+            raise ValueError("a window holds more keyframes than slots")
+        T_ref = np.asarray(kfs[-1].optimized_T_world_kf, np.float64)
+        T_refs.append(T_ref.astype(np.float32))
+        T_refkf_world = np.linalg.inv(T_ref)
+        for kf in kfs:
+            if kf.cloud.capacity != ncap:
+                raise ValueError(
+                    "compositions require equal keyframe cloud capacities")
+            pts_l.append(kf.cloud.points)
+            mask_l.append(kf.cloud.mask)
+            for k in desc_keys:
+                desc_l[k].append(kf.cloud.descriptors[k])
+            Ts_l.append((T_refkf_world
+                         @ np.asarray(kf.optimized_T_world_kf, np.float64)
+                         ).astype(np.float32))
+        for _ in range(C - len(kfs)):
+            pts_l.append(zero_pts)
+            mask_l.append(zero_mask)
+            for k in desc_keys:
+                desc_l[k].append(zero_desc[k])
+            Ts_l.append(np.eye(4, dtype=np.float32))
+        valid_l += [True] * len(kfs) + [False] * (C - len(kfs))
+    points = torch.stack(pts_l).reshape(M, C, ncap, 3)
+    masks = torch.stack(mask_l).reshape(M, C, ncap)
+    descs = {k: torch.stack(v).reshape(M, C, ncap, -1)
+             for k, v in desc_l.items()}
+    Ts = torch.as_tensor(np.stack(Ts_l).reshape(M, C, 4, 4), device=dev)
+    slot_valid = torch.as_tensor(np.asarray(valid_l).reshape(M, C),
                                  device=dev)
-    return (points, masks, descs, torch.as_tensor(Ts, device=dev),
-            slot_valid, desc_keys, T_ref.astype(np.float32))
+    return (points, masks, descs, Ts, slot_valid, desc_keys,
+            np.stack(T_refs))
 
 
-def stack_composition(graph: PoseGraph, comp_ids, capacity: int):
-    return stack_keyframes([graph.keyframe(v) for v in comp_ids], capacity)
+def stack_compositions(graph: PoseGraph, ids_list, capacity: int):
+    """Stack M compositions' keyframe payloads into ``[M, C, ...]`` inputs
+    of :func:`build_cloud` (``pgslam_tpu.localmap.stack_compositions``).
+    Returns (points, masks, descs, T_refkf_kf, slot_valid, desc_keys,
+    T_world_refs ``[M, 4, 4]`` host numpy)."""
+    return _stack_many([[graph.keyframe(v) for v in ids] for ids in ids_list],
+                       capacity)
+
+
+def batch_rebuild(local_maps, pad_to: int = 0,
+                  return_stacked: bool = False) -> Optional[Cloud]:
+    """Rebuild several LocalMaps' clouds in one batched build (the fleet
+    path). All maps share capacity, keyframe cloud capacity and
+    descriptor keys. The batch is padded with copies of the first map to
+    ``max(pad_to, next power of two)``; with ``return_stacked`` the
+    padded batch ``[bucket, C*N, ...]`` is returned as one cloud."""
+    if not local_maps:
+        return None
+    if len(local_maps) == 1 and pad_to <= 1 and not return_stacked:
+        local_maps[0]._build_cloud()
+        return None
+    n = len(local_maps)
+    bucket = max(pad_to, 1 << (n - 1).bit_length())
+    lms = list(local_maps) + [local_maps[0]] * (bucket - n)
+    C = local_maps[0]._capacity
+    if any(lm._capacity != C for lm in lms):
+        raise ValueError("batch_rebuild requires equal map capacities")
+    points, masks, descs, Ts, slot_valid, desc_keys, _ = _stack_many(
+        [[kf for _, kf in lm._data] for lm in lms], C)
+    pts, mask, out_desc = build_cloud(points, masks, descs, Ts, slot_valid,
+                                      desc_keys)
+    for i, lm in enumerate(local_maps):
+        lm._cloud = Cloud(points=pts[i], mask=mask[i],
+                          descriptors={k: v[i] for k, v in out_desc.items()})
+    if return_stacked:
+        return Cloud(points=pts, mask=mask, descriptors=out_desc)
+    return None
 
 
 class LocalMap:
@@ -115,15 +175,20 @@ class LocalMap:
         self._cloud: Optional[Cloud] = None
 
     def update_to_new_composition(self, graph: PoseGraph,
-                                  comp: Composition) -> None:
+                                  comp: Composition,
+                                  build: bool = True) -> None:
+        """Take the composition's snapshots; ``build=False`` leaves the
+        cloud to a batched build (:func:`batch_rebuild`)."""
         self._capacity = comp.capacity
         self._data = [(v, graph.keyframe(v)) for v in comp]
-        self._build_cloud()
+        if build:
+            self._build_cloud()
 
-    def update_from_graph(self, graph: PoseGraph) -> None:
+    def update_from_graph(self, graph: PoseGraph, build: bool = True) -> None:
         """Refresh payload snapshots for the current vertices."""
         self._data = [(v, graph.keyframe(v)) for v, _ in self._data]
-        self._build_cloud()
+        if build:
+            self._build_cloud()
 
     def capacity(self) -> int:
         return self._capacity

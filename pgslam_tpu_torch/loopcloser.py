@@ -15,15 +15,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cloud import Cloud
+from .cloud import Cloud, stack_clouds
 from .devices import resolve_device
 from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .graph.shortest_path import candidate_composition, dijkstra
-from .localmap import Composition, LocalMap
+from .localmap import Composition, LocalMap, batch_rebuild
 from .ops import filters as F
 from .ops.icp import (ICPConfig, ICPResult, compute_residual, eps_dead_zone,
                       eps_margin, icp_core, reference_chain, to_host)
 from .ops.icp_fused import fused_eligible, fused_icp_register
+from .utils import counters
 
 log = logging.getLogger("pgslam_tpu_torch.loopcloser")
 
@@ -61,6 +62,24 @@ def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
     return result, residual, ref
 
 
+def verify_batch(readings: Cloud, refs: Cloud, T0s: torch.Tensor,
+                 cfg: ICPConfig):
+    """The verification stage for a stacked batch (``_verify_batch``):
+    both filter chains per entry, one batched registration (one K2 launch
+    on the card when the config is eligible) and each entry's residual
+    computed fresh at its result. Returns (batched result, residuals)."""
+    from .parallel.batched import batched_register
+    B = readings.points.shape[0]
+    rd = [F.apply_chain(cfg.reading_filters, readings.map(lambda a: a[b]))
+          for b in range(B)]
+    chain = reference_chain(cfg, refs)
+    rf = [F.apply_chain(chain, refs.map(lambda a: a[b])) for b in range(B)]
+    res = batched_register(stack_clouds(rd), stack_clouds(rf), T0s, cfg)
+    residuals = [float(compute_residual(r, m, res.T[b], cfg))
+                 for b, (r, m) in enumerate(zip(rd, rf))]
+    return res, residuals
+
+
 class LoopCloser:
 
     def __init__(self, map_manager: MapManager, optimizer,
@@ -79,11 +98,88 @@ class LoopCloser:
         self.input_T_world_kf: Optional[np.ndarray] = None
         self.T_refkf_kf: Optional[np.ndarray] = None
         self.last_result: Optional[ICPResult] = None
+        # This closer's outcomes; utils.counters sums them over every
+        # closer in the process under "loopcloser/<outcome>".
         self.accepted = 0
         self.rejected = 0
+        self.rejected_duplicate = 0
+        # The fleet queues new vertices and verifies them in one batch per
+        # step (process_pending_batched), padded to at least batch_pad_to.
+        self.queue_mode = False
+        self.batch_pad_to = 0
+        self._pending = []
+
+    def _count(self, outcome: str) -> None:
+        setattr(self, outcome, getattr(self, outcome) + 1)
+        counters[f"loopcloser/{outcome}"] += 1
 
     def add_new_vertex(self, v: int) -> None:
+        if self.queue_mode:
+            self._pending.append(int(v))
+            return
         self.process_vertex(int(v))
+
+    def process_pending_batched(self) -> None:
+        """Verify every queued vertex: the host candidate searches, one
+        batched candidate-map build, one batched verification, then the
+        serial acceptance (``pgslam_tpu`` ``process_pending_batched``)."""
+        if not self._pending:
+            return
+        vs, self._pending = self._pending, []
+        graph = self.mm.get_graph()
+        reqs = [(v, c) for v in vs
+                for c in [self.find_candidate_composition(v)] if c is not None]
+        if not reqs:
+            return
+        size = self.config.candidate_local_map_size
+        lms = []
+        for _, comp in reqs:
+            lm = LocalMap(size)
+            lm.update_to_new_composition(graph, comp, build=False)
+            lms.append(lm)
+        n = len(reqs)
+        bucket = max(self.batch_pad_to, 1 << (n - 1).bit_length())
+        refs = batch_rebuild(lms, pad_to=bucket, return_stacked=True)
+        readings = [graph.clouds[v] for v, _ in reqs]
+        T0s = [(np.linalg.inv(np.asarray(lm.reference_keyframe()
+                                         .optimized_T_world_kf, np.float64))
+                @ np.asarray(graph.optimized_poses[v], np.float64)
+                ).astype(np.float32) for (v, _), lm in zip(reqs, lms)]
+        readings += [readings[0]] * (bucket - n)
+        T0s += [T0s[0]] * (bucket - n)
+        res, residuals = verify_batch(
+            stack_clouds(readings), refs,
+            torch.as_tensor(np.stack(T0s), device=refs.device),
+            self.config.icp)
+        accepted_pairs = set()
+        for i, ((v, _), lm) in enumerate(zip(reqs, lms)):
+            result = to_host(res, index=i)
+            self.input_vertex = v
+            self.input_cloud = graph.clouds[v]
+            self.input_T_world_kf = graph.optimized_poses[v].copy()
+            self.candidate_local_map = lm
+            self.T_refkf_kf = np.asarray(result.T)
+            self.last_result = result
+            ref_v = lm.reference_vertex()
+            # Every search of the batch ran before any insertion, so two
+            # vertices can pick each other; one closure per pair. The set
+            # covers the queued optimizer, which inserts the edges later.
+            if graph.has_edge(ref_v, v) or (ref_v, v) in accepted_pairs \
+                    or (v, ref_v) in accepted_pairs:
+                self._count("rejected_duplicate")
+                log.info("[LoopCloser] Loop closure %d -> %d dropped: edge "
+                         "already exists", ref_v, v)
+            elif self.check_icp_result(result, residual=residuals[i]):
+                self._count("accepted")
+                accepted_pairs.add((ref_v, v))
+                log.info("[LoopCloser] Loop closure accepted: %d -> %d",
+                         ref_v, v)
+                self.optimizer.add_new_data(ref_v, v, self.T_refkf_kf,
+                                            np.asarray(result.cov))
+            else:
+                self._count("rejected")
+                log.info("[LoopCloser] Loop closure rejected for vertex %d",
+                         v)
 
     def process_vertex(self, input_vertex: int) -> None:
         rec = self._dispatch_verification(input_vertex)
@@ -126,13 +222,13 @@ class LoopCloser:
                           residual) -> None:
         ref_v = lm.reference_vertex()
         if self.check_icp_result(result, residual=residual):
-            self.accepted += 1
+            self._count("accepted")
             log.info("[LoopCloser] Loop closure accepted: %d -> %d", ref_v,
                      input_vertex)
             self.optimizer.add_new_data(ref_v, input_vertex, self.T_refkf_kf,
                                         np.asarray(result.cov))
         else:
-            self.rejected += 1
+            self._count("rejected")
             log.info("[LoopCloser] Loop closure rejected for vertex %d",
                      input_vertex)
 

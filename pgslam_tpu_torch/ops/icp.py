@@ -1,8 +1,9 @@
 """The ICP loop. Counterpart of :mod:`pgslam_tpu.ops.icp`: match ->
 outlier-weigh -> minimize -> check, with the iteration cap, the smoothed
-differential checker, an optional coarse stage, the bound checker and a
-NaN guard. The iterate loop runs on the host (one device sync per
-iteration for the convergence test); matching goes through K1.
+differential checker, an optional coarse stage, optional Anderson
+acceleration, the bound checker and a NaN guard. The iterate loop runs on
+the host (one device sync per iteration for the convergence test);
+matching goes through K1.
 """
 
 from __future__ import annotations
@@ -56,8 +57,6 @@ def check_supported(cfg: ICPConfig) -> None:
     """Raise for the settings whose paths are not ported yet."""
     if cfg.matcher == "grid":
         raise NotImplementedError("matcher='grid' is not ported yet")
-    if cfg.anderson_m and cfg.anderson_m > 1:
-        raise NotImplementedError("Anderson acceleration is not ported yet")
 
 
 def eps_dead_zone(cfg: ICPConfig) -> Optional[str]:
@@ -128,21 +127,69 @@ def _match_and_weigh(points, mask, reference, cfg):
     return matches, O.compute_weights(cfg.outlier, matches, mask)
 
 
+def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig):
+    """One match -> weigh -> minimize step: (delta @ T, delta)."""
+    pts = se3.apply(T, pts_in.points)
+    matches, weights = _match_and_weigh(pts, pts_in.mask, reference, cfg)
+    elems = build_error_elements(pts, reference, matches, weights, cfg)
+    if cfg.error == "point_to_plane":
+        delta = M.point_to_plane(elems)
+    else:
+        delta = M.point_to_point(elems)
+    return delta @ T, delta
+
+
+class _Anderson:
+    """Type-II Anderson acceleration on the window of the last ``m``
+    se3-log twists taken relative to the stage entry ``T0``
+    (``pgslam_tpu/ops/icp.py`` ``body_aa``): ``x_k = log(T T0^-1)``,
+    ``g_k = log(T_plain T0^-1)``, the (m-1)x(m-1) system regularized by
+    1e-10 I, and the extrapolation kept only when it lies within twice
+    the plain step of ``g_k`` and the window has filled."""
+
+    def __init__(self, T0, m: int):
+        self.T0, self.m = T0, m
+        self.Tinv0 = se3.inverse(T0)
+        self.X = torch.zeros((m, 6), dtype=T0.dtype, device=T0.device)
+        self.GX = torch.zeros_like(self.X)
+        self.eye = torch.eye(m - 1, dtype=T0.dtype, device=T0.device)
+
+    def __call__(self, T, T_plain, it: int):
+        x_k = se3.log(T @ self.Tinv0)
+        g_k = se3.log(T_plain @ self.Tinv0)
+        self.X = torch.cat([x_k[None], self.X[:-1]])
+        self.GX = torch.cat([g_k[None], self.GX[:-1]])
+        Fr = self.GX - self.X
+        dF = Fr[0] - Fr[1:]
+        dG = self.GX[0] - self.GX[1:]
+        # solve_ex: an exactly singular window (the zero-filled warm-up)
+        # gives non-finite gamma, which the safeguard below rejects, as
+        # the reference's LU solve does.
+        gamma = torch.linalg.solve_ex(dF @ dF.T + 1e-10 * self.eye,
+                                      dF @ Fr[0])[0]
+        x_acc = g_k - gamma @ dG
+        plain_sz = torch.linalg.norm(g_k - x_k)
+        ok = (torch.linalg.norm(x_acc - g_k) <= 2.0 * plain_sz + 1e-9) \
+            & (it + 1 >= self.m)
+        return se3.exp(torch.where(ok, x_acc, g_k)) @ self.T0
+
+
 def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
               max_iterations: int):
     L = max(1, cfg.smooth_length)
     dts = torch.full((L,), float("inf"), device=T0.device)
     drs = dts.clone()
+    aa = (_Anderson(T0, cfg.anderson_m)
+          if cfg.anderson_m and cfg.anderson_m > 1 else None)
     T, it, converged = T0, 0, False
     while it < max_iterations and not converged:
-        pts = se3.apply(T, reading.points)
-        matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg)
-        elems = build_error_elements(pts, reference, matches, weights, cfg)
-        if cfg.error == "point_to_plane":
-            delta = M.point_to_plane(elems)
+        T_plain, delta = _icp_step(reading, reference, T, cfg)
+        if aa is not None:
+            T_new = aa(T, T_plain, it)
+            delta = T_new @ se3.inverse(T)
+            T = T_new
         else:
-            delta = M.point_to_point(elems)
-        T = delta @ T
+            T = T_plain
         dts = torch.cat([se3.translation_norm(delta)[None], dts[:-1]])
         drs = torch.cat([se3.rotation_angle(delta)[None], drs[:-1]])
         converged = bool((dts.mean() < cfg.trans_eps)

@@ -39,6 +39,8 @@ one SM of 132; batching registrations fills the card.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import se3
@@ -54,20 +56,27 @@ OUT_WIDTH = 56
 # Per reading point: transformed point, matched point, matched normal, d2.
 SCRATCH_WIDTH = 10
 MAX_SMOOTH = 8
+MAX_ANDERSON = 4
 
 
 def fused_eligible(cfg: ICPConfig) -> bool:
-    """Whether K2 covers this config's semantics. Anderson acceleration
-    is not ported yet, so ``anderson_m > 1`` is not eligible."""
+    """Whether K2 covers this config's semantics. As in the JAX package,
+    Anderson windows up to ``MAX_ANDERSON`` are eligible. Narrower than
+    it: at most one TrimmedDist and one MaxDist, and ``smooth_length``
+    at most ``MAX_SMOOTH`` (such configs run ``icp_core``)."""
     n_trim = sum(isinstance(f, O.TrimmedDist) for f in cfg.outlier)
     n_max = sum(isinstance(f, O.MaxDist) for f in cfg.outlier)
     return (cfg.error in ("point_to_plane", "point_to_point")
             and cfg.matcher in ("pallas", "brute")
             and cfg.knn == 1
-            and not (cfg.anderson_m and cfg.anderson_m > 1)
+            and (not cfg.anderson_m or cfg.anderson_m <= MAX_ANDERSON)
             and n_trim + n_max == len(cfg.outlier)
             and n_trim <= 1 and n_max <= 1
             and max(1, cfg.smooth_length) <= MAX_SMOOTH)
+
+
+def _anderson(cfg: ICPConfig) -> bool:
+    return bool(cfg.anderson_m and cfg.anderson_m > 1)
 
 
 def _outlier_params(cfg: ICPConfig):
@@ -144,29 +153,108 @@ def _p2point_delta(pp, q, w):
     return se3.make(R, t)
 
 
-def _stage(T, pts, mask, ref, cfg, trim, maxd, max_it):
+def _step(T, pts, mask, ref, cfg, trim, maxd):
+    """One match -> weigh -> minimize step: (delta, twist of delta)."""
     from ..optim.pgo import spd_inverse6
+    pp, q, n, d2, hit = _match(T, pts, mask, *ref)
+    w = _weights(d2, hit, trim, maxd)
+    if cfg.error == "point_to_plane":
+        A, b, _, wsum = _p2plane_moments(pp, q, n, w)
+        x = spd_inverse6(A + 1e-6 * torch.eye(6, device=T.device)) @ b
+        x = torch.where(wsum >= MIN_SUPPORT, x, torch.zeros_like(x))
+        return se3.exp(x), x
+    delta = _p2point_delta(pp, q, w)
+    return delta, se3.log(delta)
+
+
+def _checker(dts, drs, dt, dr, cfg):
+    """Push one step's translation and rotation sizes into the smoothed
+    windows; returns (dts, drs, converged)."""
+    L = len(dts)
+    dts, drs = [dt] + dts[:-1], [dr] + drs[:-1]
+    conv = bool((_fsum(dts) / L < cfg.trans_eps)
+                & (_fsum(drs) / L < cfg.rot_eps))
+    return dts, drs, conv
+
+
+def _stage(T, pts, mask, ref, cfg, trim, maxd, max_it):
     L = max(1, cfg.smooth_length)
     inf = torch.tensor(float("inf"), device=T.device)
     dts, drs = [inf] * L, [inf] * L
     it, conv = 0, False
-    eye6 = torch.eye(6, device=T.device)
     while it < max_it and not conv:
-        pp, q, n, d2, hit = _match(T, pts, mask, *ref)
-        w = _weights(d2, hit, trim, maxd)
-        if cfg.error == "point_to_plane":
-            A, b, _, wsum = _p2plane_moments(pp, q, n, w)
-            x = spd_inverse6(A + 1e-6 * eye6) @ b
-            x = torch.where(wsum >= MIN_SUPPORT, x, torch.zeros_like(x))
-            delta = se3.exp(x)
-        else:
-            delta = _p2point_delta(pp, q, w)
-            x = se3.log(delta)
+        delta, x = _step(T, pts, mask, ref, cfg, trim, maxd)
         T = delta @ T
-        dts = [torch.sqrt(sq_norm(delta[:3, 3]))] + dts[:-1]
-        drs = [torch.sqrt(sq_norm(x[3:6]))] + drs[:-1]
-        conv = bool((_fsum(dts) / L < cfg.trans_eps)
-                    & (_fsum(drs) / L < cfg.rot_eps))
+        dts, drs, conv = _checker(dts, drs,
+                                  torch.sqrt(sq_norm(delta[:3, 3])),
+                                  torch.sqrt(sq_norm(x[3:6])), cfg)
+        it += 1
+    return T, it, conv
+
+
+def _dot(a, b):
+    """Left-to-right sum of the products of the last axis (the kernel's
+    order)."""
+    acc = a[..., 0] * b[..., 0]
+    for d in range(1, a.shape[-1]):
+        acc = acc + a[..., d] * b[..., d]
+    return acc
+
+
+def solve_small(A, rhs):
+    """Closed-form solve of the (n <= 3) regularized AA system, as
+    ``icp_pallas.py::solve_small``: n = 1 divides, n = 2 by Cramer's
+    rule, n = 3 by the adjugate inverse."""
+    from ..optim.pgo import inv3
+    n = rhs.shape[0]
+    if n == 1:
+        return rhs / A[0, 0]
+    if n == 2:
+        rdet = 1.0 / (A[0, 0] * A[1, 1] - A[0, 1] * A[1, 0])
+        return torch.stack([(A[1, 1] * rhs[0] - A[0, 1] * rhs[1]) * rdet,
+                            (A[0, 0] * rhs[1] - A[1, 0] * rhs[0]) * rdet])
+    return _dot(inv3(A), rhs[None, :])
+
+
+def _stage_aa(T, pts, mask, ref, cfg, trim, maxd, max_it):
+    """The Anderson-accelerated stage (``anderson_m`` in 2..4), line for
+    line as ``icp_pallas.py::run_stage_aa``: type-II AA on the window of
+    se3-log twists relative to the stage entry, the (m-1)x(m-1) system
+    regularized by 1e-10 I and solved in closed form, the extrapolation
+    kept only within twice the plain step of ``g_k`` once the window has
+    filled; the checker reads ``dTm = T_new T^-1``."""
+    m = cfg.anderson_m
+    L = max(1, cfg.smooth_length)
+    inf = torch.tensor(float("inf"), device=T.device)
+    dts, drs = [inf] * L, [inf] * L
+    T0 = T
+    Tinv0 = se3.inverse(T0)
+    X = torch.zeros((m, 6), device=T.device)
+    GX = torch.zeros_like(X)
+    reg = 1e-10 * torch.eye(m - 1, device=T.device)
+    it, conv = 0, False
+    while it < max_it and not conv:
+        delta, _ = _step(T, pts, mask, ref, cfg, trim, maxd)
+        T_plain = delta @ T
+        x_k = se3.log(T @ Tinv0)
+        g_k = se3.log(T_plain @ Tinv0)
+        X = torch.cat([x_k[None], X[:-1]])
+        GX = torch.cat([g_k[None], GX[:-1]])
+        Fr = GX - X
+        dF = Fr[0] - Fr[1:]
+        dG = GX[0] - GX[1:]
+        A = _dot(dF[:, None, :], dF[None, :, :]) + reg
+        gamma = solve_small(A, _dot(dF, Fr[0][None, :]))
+        x_acc = g_k - _dot(gamma[None, :], dG.T)
+        plain_sz = torch.sqrt(_dot(g_k - x_k, g_k - x_k))
+        acc_sz = torch.sqrt(_dot(x_acc - g_k, x_acc - g_k))
+        ok = (acc_sz <= 2.0 * plain_sz + 1e-9) & (it + 1 >= m)
+        T_new = se3.exp(torch.where(ok, x_acc, g_k)) @ T0
+        dTm = T_new @ se3.inverse(T)
+        dlog = se3.log(dTm)
+        T = T_new
+        dts, drs, conv = _checker(dts, drs, torch.sqrt(sq_norm(dTm[:3, 3])),
+                                  torch.sqrt(sq_norm(dlog[3:6])), cfg)
         it += 1
     return T, it, conv
 
@@ -206,13 +294,14 @@ def _final(T, pts, mask, ref, cfg, trim, maxd):
 
 def _register_one_plain(rd_pts, rd_mask, ref, T0, cfg):
     trim, maxd = _outlier_params(cfg)
+    stage = _stage_aa if _anderson(cfg) else _stage
     T = T0
     if cfg.coarse_div and cfg.coarse_div > 1:
         d = cfg.coarse_div
-        T, _, _ = _stage(T, rd_pts[::d], rd_mask[::d], ref, cfg, trim, maxd,
-                         cfg.coarse_iterations)
-    T, it, conv = _stage(T, rd_pts, rd_mask, ref, cfg, trim, maxd,
-                         cfg.max_iterations)
+        T, _, _ = stage(T, rd_pts[::d], rd_mask[::d], ref, cfg, trim, maxd,
+                        cfg.coarse_iterations)
+    T, it, conv = stage(T, rd_pts, rd_mask, ref, cfg, trim, maxd,
+                        cfg.max_iterations)
     overlap, ssr, cov = _final(T, rd_pts, rd_mask, ref, cfg, trim, maxd)
     row = torch.cat([T.reshape(16),
                      torch.tensor([float(it), float(conv)], device=T.device),
@@ -268,7 +357,9 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig):
     iparams = torch.tensor(
         [1 if cfg.error == "point_to_plane" else 0, cfg.max_iterations,
          cfg.coarse_iterations if coarse else 0,
-         max(1, cfg.smooth_length)], dtype=torch.int32, device=dev)
+         max(1, cfg.smooth_length),
+         cfg.anderson_m if _anderson(cfg) else 0],
+        dtype=torch.int32, device=dev)
     scratch = torch.empty((B, NQ, SCRATCH_WIDTH), dtype=torch.float32,
                           device=dev)
     out = torch.empty((B, OUT_WIDTH), dtype=torch.float32, device=dev)
@@ -280,6 +371,7 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig):
         _build.stream_of(T0))
     _build.check(err, "pgs_icp_fused")
     fused_icp_register.launches += 1
+    fused_icp_register.batch_sizes[B] += 1
     return out
 
 
@@ -301,6 +393,9 @@ def fused_icp_register(reading: Cloud, reference: Cloud,
 
 
 fused_icp_register.launches = 0
+# Launches per batch size (the fleet's registrations and verifications
+# run at its agent count and above).
+fused_icp_register.batch_sizes = collections.Counter()
 
 
 def result_from_rows(out: torch.Tensor, T_init, cfg) -> ICPResult:

@@ -68,14 +68,26 @@ class Optimizer:
         self.data_buffer: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
         self.last_stats = None
         self.runs = 0
+        # The fleet queues constraints and optimizes once per step over
+        # all of them (process_pending).
+        self.queue_mode = False
 
     def add_new_data(self, from_v: int, to_v: int, T_from_to,
                      cov_from_to) -> None:
-        """One accepted loop constraint = one optimization."""
-        self.data_buffer = [(int(from_v), int(to_v),
-                             np.asarray(T_from_to, np.float32),
-                             np.asarray(cov_from_to, np.float32))]
+        """One accepted loop constraint = one optimization, or a queued
+        constraint in ``queue_mode``."""
+        item = (int(from_v), int(to_v), np.asarray(T_from_to, np.float32),
+                np.asarray(cov_from_to, np.float32))
+        if self.queue_mode:
+            self.data_buffer.append(item)
+            return
+        self.data_buffer = [item]
         self.process_data()
+
+    def process_pending(self) -> None:
+        """One optimization over every queued constraint."""
+        if self.data_buffer:
+            self.process_data()
 
     def process_data(self) -> None:
         log.info("[Optimizer] Building factor graph with %d new loop "

@@ -79,6 +79,19 @@ def _icp_pair(cuda, error):
     return cfg, stack_clouds([reading] * 3), stack_clouds([ref] * 3)
 
 
+def _assert_k2_matches_plain(res, rows):
+    """Phase k2's limits, per entry."""
+    B = rows.shape[0]
+    assert float((res.T - rows[:, :16].reshape(B, 4, 4)).abs().max()) < 1e-4
+    assert torch.equal(res.iterations, rows[:, 16].to(torch.int32))
+    assert torch.equal(res.converged, rows[:, 17] > 0.5)
+    torch.testing.assert_close(res.overlap, rows[:, 18], atol=1e-4, rtol=0)
+    torch.testing.assert_close(res.residual, rows[:, 19], atol=0, rtol=1e-4)
+    cov = rows[:, 20:56].reshape(B, 6, 6)
+    scale = cov.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((res.cov - cov).abs() <= 1e-3 * scale).all())
+
+
 @pytest.mark.parametrize("error", ["point_to_plane", "point_to_point"])
 def test_k2_matches_plain(cuda, error):
     cfg, rd, rf = _icp_pair(cuda, error)
@@ -88,13 +101,109 @@ def test_k2_matches_plain(cuda, error):
     rows = fused_icp_register_plain(rd, rf, T0, cfg)
     torch.cuda.synchronize()
     assert fused_icp_register.launches == before + 1
-    assert float((res.T - rows[:, :16].reshape(3, 4, 4)).abs().max()) < 1e-4
-    assert torch.equal(res.iterations, rows[:, 16].to(torch.int32))
-    torch.testing.assert_close(res.overlap, rows[:, 18], atol=1e-4, rtol=0)
-    torch.testing.assert_close(res.residual, rows[:, 19], atol=0, rtol=1e-4)
-    cov = rows[:, 20:56].reshape(3, 6, 6)
-    assert float((res.cov - cov).abs().max()) \
-        <= 1e-3 * float(cov.abs().max())
+    _assert_k2_matches_plain(res, rows)
+
+
+@pytest.mark.parametrize("m", [2, 3, 4])
+def test_k2_anderson_matches_plain(cuda, m):
+    """The AA stage in K2 against the plain version's _stage_aa, which
+    solves the window's system in the same closed form."""
+    import dataclasses
+    cfg, rd, rf = _icp_pair(cuda, "point_to_plane")
+    cfg = dataclasses.replace(cfg, anderson_m=m, trans_eps=1e-4,
+                              rot_eps=1e-4)
+    T0 = torch.eye(4, device=cuda).expand(3, 4, 4).contiguous()
+    res = fused_icp_register(rd, rf, T0, cfg)
+    rows = fused_icp_register_plain(rd, rf, T0, cfg)
+    _assert_k2_matches_plain(res, rows)
+
+
+def _box_problems(cuda, n_distinct, seed=0):
+    """Distinct registrations: points on the faces of a box, each moved by
+    its own odometry-sized offset (bench.py's twist scales)."""
+    rng = np.random.default_rng(seed)
+    half = np.array([4.0, 3.0, 2.0])
+    rds, rfs = [], []
+    for _ in range(n_distinct):
+        pts = rng.uniform(-1, 1, (600, 3)) * half
+        face = rng.integers(0, 6, 600)
+        axis = face % 3
+        pts[np.arange(600), axis] = (np.where(face < 3, 1.0, -1.0)
+                                     * half[axis]
+                                     + rng.normal(size=600) * 0.02)
+        off = se3.exp(torch.as_tensor(
+            rng.normal(size=6) * [0.15, 0.15, 0.03, 0.005, 0.005, 0.02],
+            dtype=torch.float32)).numpy()
+        moved = ((pts - off[:3, 3]) @ off[:3, :3]
+                 + rng.normal(size=pts.shape) * 0.01).astype(np.float32)
+        rfs.append(F.compute_normals(make_cloud(pts.astype(np.float32),
+                                                capacity=640, device=cuda)))
+        rds.append(make_cloud(moved, capacity=640, device=cuda))
+    return rds, rfs
+
+
+def test_k2_batch_entries_are_independent(cuda):
+    """B = 16 (the fleet's batch): 12 distinct problems and 4 duplicates.
+    Each entry gives the bits of its own B = 1 launch, duplicates equal
+    their originals, and every entry holds phase k2's limits against the
+    plain version."""
+    rds, rfs = _box_problems(cuda, 12)
+    rds, rfs = rds + rds[:4], rfs + rfs[:4]
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
+                    max_iterations=12, coarse_div=4, coarse_iterations=4)
+    rd, rf = stack_clouds(rds), stack_clouds(rfs)
+    T0 = torch.eye(4, device=cuda).expand(16, 4, 4).contiguous()
+    before = fused_icp_register.batch_sizes[16]
+    res = fused_icp_register(rd, rf, T0, cfg)
+    assert fused_icp_register.batch_sizes[16] == before + 1
+    fields = ("T", "iterations", "converged", "overlap", "residual", "cov")
+    for b in range(16):
+        one = fused_icp_register(stack_clouds([rds[b]]),
+                                 stack_clouds([rfs[b]]), T0[:1], cfg)
+        for f in fields:
+            assert torch.equal(getattr(res, f)[b], getattr(one, f)[0]), (b, f)
+    for b in range(4):
+        for f in fields:
+            assert torch.equal(getattr(res, f)[b], getattr(res, f)[12 + b])
+    _assert_k2_matches_plain(res, fused_icp_register_plain(rd, rf, T0, cfg))
+
+
+def test_batched_register_routes_to_k2_on_the_card(cuda):
+    from pgslam_tpu_torch.parallel.batched import batched_register
+    rds, rfs = _box_problems(cuda, 3)
+    rd, rf = stack_clouds(rds), stack_clouds(rfs)
+    T0 = torch.eye(4, device=cuda).expand(3, 4, 4).contiguous()
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
+                    max_iterations=12)
+    before = fused_icp_register.launches
+    fused = batched_register(rd, rf, T0, cfg)
+    assert fused_icp_register.launches == before + 1
+    plain = batched_register(rd, rf, T0, cfg, fused="off")
+    assert fused_icp_register.launches == before + 1
+    # K2 and icp_core differ by design (tie averaging, closed-form step)
+    assert float((fused.T - plain.T).abs().max()) < 1e-3
+
+
+def test_fleet_on_the_card(cuda):
+    """tests/test_multi_agent.py::test_two_agents_share_graph's scene on
+    the card: the fleet registers through K2 at its batch size."""
+    from pgslam_tpu_torch.datasets import corridor_sequence
+    from pgslam_tpu_torch.fleet_problems import fleet_config
+    from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
+    scans, odom, truth = corridor_sequence(
+        np.random.default_rng(7), n_scans=12, scan_points=512, step=0.4,
+        noise=0.003, odom_noise=0.005, length=30.0)
+    fleet = MultiAgentSlam(fleet_config(), n_agents=2)
+    before = fused_icp_register.batch_sizes[2]
+    T_rs = np.eye(4, dtype=np.float32)
+    for i in range(10):
+        fleet.add_data_batch(i, "world", np.stack([odom[i], odom[i + 1]]),
+                             T_rs, [scans[i], scans[i + 1]])
+    assert fused_icp_register.batch_sizes[2] > before
+    for b, i in ((0, 9), (1, 10)):
+        assert np.linalg.norm(fleet.poses()[b][:3, 3]
+                              - truth[i][:3, 3]) < 0.25
+    assert fleet.get_graph().n_vertices >= 3
 
 
 def _ring(cuda, V=40, seed=1):

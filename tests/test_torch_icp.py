@@ -179,5 +179,5 @@ def test_icp_core_matches_jax(error, coarse):
 def test_unported_settings_raise():
     with pytest.raises(NotImplementedError):
         TEngine(TICPConfig(matcher="grid"))
-    with pytest.raises(NotImplementedError):
-        TEngine(TICPConfig(anderson_m=3))
+    # Anderson acceleration is ported (tests/test_torch_anderson.py).
+    TEngine(TICPConfig(anderson_m=3))

@@ -122,10 +122,22 @@ def test_degenerate_reading_and_bound_checker():
 
 
 def test_eligibility_gate():
+    from pgslam_tpu.ops.icp_pallas import fused_eligible as j_eligible
+    from pgslam_tpu_torch.ops.icp_fused import MAX_SMOOTH
     assert fused_eligible(_cfg(error="point_to_point")[1])
-    # Anderson acceleration is not ported to K2 yet.
-    assert not fused_eligible(_cfg(anderson_m=3)[1])
+    # Anderson windows as the JAX package takes them: m <= 4 in-kernel.
+    for m, ok in ((3, True), (4, True), (5, False)):
+        jcfg, tcfg = _cfg(anderson_m=m)
+        assert fused_eligible(tcfg) == j_eligible(jcfg) == ok, m
     assert not fused_eligible(_cfg(knn=2)[1])
+    # Narrower than JAX (ROADMAP queue 3): two filters of one kind, or a
+    # checker window above MAX_SMOOTH, run icp_core in the port.
+    for kw in ({"outlier": (JO.TrimmedDist(0.9), JO.TrimmedDist(0.8))},
+               {"outlier": (JO.MaxDist(1.0), JO.MaxDist(0.5))},
+               {"smooth_length": MAX_SMOOTH + 1}):
+        jcfg, tcfg = _cfg(**kw)
+        assert j_eligible(jcfg) and not fused_eligible(tcfg), kw
+    assert fused_eligible(_cfg(smooth_length=MAX_SMOOTH)[1])
     with pytest.raises(ValueError):
         fused_icp_register(None, None, None, _cfg(knn=2)[1])
 

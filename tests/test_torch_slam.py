@@ -57,6 +57,10 @@ _BLOCK_JAX = (
     "import pgslam_tpu_torch.convert, pgslam_tpu_torch.optim.lm\n"
     "import pgslam_tpu_torch.ops.icp_fused, pgslam_tpu_torch.optim.pcg\n"
     "import pgslam_tpu_torch.pgo_problems, pgslam_tpu_torch.profile_replay\n"
+    "import pgslam_tpu_torch.parallel.batched\n"
+    "import pgslam_tpu_torch.parallel.multi_agent\n"
+    "import pgslam_tpu_torch.fleet_problems\n"
+    "from pgslam_tpu_torch import MultiAgentSlam, batched_register\n"
     "print('imported')\n")
 
 
@@ -105,6 +109,7 @@ def _entry_points():
     from pgslam_tpu_torch.localizer import Localizer
     from pgslam_tpu_torch.loopcloser import LoopCloser
     from pgslam_tpu_torch.optimizer import Optimizer
+    from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
     return {
         "PoseGraphSlam": lambda **kw: replays.PoseGraphSlam(
             replays.loop_config(), **kw).device,
@@ -113,11 +118,13 @@ def _entry_points():
             MapManager(), None, replays.loop_config().loop_closer,
             **kw).device,
         "Localizer": lambda **kw: Localizer(MapManager(), **kw).device,
+        "MultiAgentSlam": lambda **kw: MultiAgentSlam(
+            replays.loop_config(), n_agents=2, **kw).device,
     }
 
 
 @pytest.mark.parametrize("name", ["PoseGraphSlam", "Optimizer", "LoopCloser",
-                                  "Localizer"])
+                                  "Localizer", "MultiAgentSlam"])
 def test_entry_points_default_to_the_gpu(name):
     make = _entry_points()[name]
     assert make(device="cpu").type == "cpu"
