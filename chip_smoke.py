@@ -16,8 +16,10 @@ failure, and prints the final JSON line only when every phase passed):
    acceleration (windows 2-4), and the headline batch, 128 int16 sensor
    packets of 1024 points against 128 distinct 8192-point maps, every
    entry bit-equal to its own B = 1 launch and within the limits of the
-   plain version from its start or from one a rounding away; K3: a 500-pose loop under the profile's LM settings,
-   poses, costs and iteration count; K4: one LM step's PCG solve of the
+   plain version from its start or from one a rounding away; K3: a
+   500-pose loop under the profile's LM settings (poses, costs and
+   iteration count) and ``pgo_1k`` under the default ``PGOConfig``, each
+   launched three times for the same bits, with its cluster size; K4: one LM step's PCG solve of the
    ``pgo_1k`` and ``pgo_16k`` graphs, agreement, residuals and
    bit-for-bit repeats), with CUDA-event times after a warm-up;
 3. the per-scan main path: the 64k-point corridor replay (the
@@ -52,7 +54,12 @@ per-kernel JSON summary; the last is ``{"ok": true, "device": {...}}``.
 
 builds the kernels and only times K3 against the LM loop with K4 at the
 padded shapes ``Optimizer`` sends (the measurement behind
-``optim.pgo.K3_MAX_SIZE``, about three minutes).
+``optim.pgo.K3_MAX_SIZE``, about four minutes).
+
+    python3 chip_smoke.py --k3-clusters
+
+times K3 at phase k3's shapes at fixed cluster sizes and placements,
+with 64 and with 1 CG step per LM iteration (about a minute).
 """
 
 import json
@@ -739,39 +746,72 @@ def loop_500(dev):
 
 
 def phase_k3(dev):
-    """The optimize with the 64k profile's ``PGOConfig`` (the default: 50
-    LM iterations, 64 PCG steps, cg_tol 1e-4), as the main path runs it."""
+    """K3 as the main paths run it, each shape launched three times (the
+    three must give the same bits) and timed after a warm-up: the 500-pose
+    loop under the 64k profile's ``PGOConfig`` (the default: 50 LM
+    iterations, 64 PCG steps, cg_tol 1e-4) against its plain version at
+    the K3 limits, and ``pgo_1k`` under the default ``PGOConfig`` against
+    its plain version at phase pgo's limits. Returns, per shape, (max abs
+    err, ms, plain ms, bound, cluster layout)."""
+    import torch
     from pgslam_tpu_torch.optim.lm import lm_optimize
-    from pgslam_tpu_torch.optim.pgo import lm_optimize_plain
+    from pgslam_tpu_torch.optim.pgo import PGOConfig, lm_optimize_plain
+    from pgslam_tpu_torch.pgo_problems import named_problem
     from pgslam_tpu_torch.replays import velodyne_config
-    args, true = loop_500(dev)
-    cfg = velodyne_config().optimizer.pgo
-    ms, (pk, sk) = timed(lambda: lm_optimize(*args, config=cfg), 5)
-    pms, (pp, sp) = timed(lambda: lm_optimize_plain(*args, config=cfg), 1)
-    err = float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max())
-    rot_err = float((pk[:, :3, :3] - pp[:, :3, :3]).abs().max())
-    costs = {k: (float(sk[k]), float(sp[k]))
-             for k in ("initial_cost", "final_cost")}
-    cost_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in costs.values())
-    it_k, it_p = int(sk["iterations"]), int(sp["iterations"])
-    closure = float(np.linalg.norm(pk[-1, :3, 3].cpu().numpy()
-                                   - true[-1, :3, 3]))
-    V, E = args[0].shape[0], args[2].shape[0]
-    bnd = lm_bound(V, E, it_k, int(sp["cg_steps"]))
-    line("k3", shape="500_poses_500_edges", iterations=it_k,
-         plain_iterations=it_p, plain_cg_steps=int(sp["cg_steps"]),
-         final_cost=costs["final_cost"][0],
-         plain_final_cost=costs["final_cost"][1], cost_rel_err=cost_err,
-         closure_err_m=closure, rot_err=rot_err, max_abs_err=err,
-         ms=round(ms, 4), plain_ms=round(pms, 4), bound_ms=round(bnd[0], 5))
-    if not (err <= K3_POSE_TOL_M and rot_err <= K3_ROT_TOL
-            and cost_err <= K3_COST_RTOL and it_k == it_p
-            and closure < K3_CLOSURE_GATE_M):
-        raise AssertionError(
-            f"K3 disagrees with its plain version: pose gap {err} m, "
-            f"rotation err {rot_err}, cost rel err {cost_err}, iterations "
-            f"{it_k} vs {it_p}, closure {closure} m")
-    return err, ms, pms, bnd
+    loop_args, true = loop_500(dev)
+    shapes = (("500_poses_500_edges", loop_args,
+               velodyne_config().optimizer.pgo),
+              ("pgo_1k_default", named_problem("pgo_1k", device=dev)[0],
+               PGOConfig()))
+    out = {}
+    for name, args, cfg in shapes:
+        ms, _ = timed(lambda: lm_optimize(*args, config=cfg), 5)
+        runs = [lm_optimize(*args, config=cfg) for _ in range(3)]
+        layout = lm_optimize.layout
+        pms, (pp, sp) = timed(lambda: lm_optimize_plain(*args, config=cfg), 1)
+        torch.cuda.synchronize()
+        pk, sk = runs[0]
+        repeats = all(torch.equal(pk, p) and all(
+            torch.equal(sk[k], s[k]) for k in sk) for p, s in runs[1:])
+        err = float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max())
+        rot_err = float((pk[:, :3, :3] - pp[:, :3, :3]).abs().max())
+        costs = {k: (float(sk[k]), float(sp[k]))
+                 for k in ("initial_cost", "final_cost")}
+        cost_err = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in costs.values())
+        it_k, it_p = int(sk["iterations"]), int(sp["iterations"])
+        V, E = args[0].shape[0], args[2].shape[0]
+        bnd = lm_bound(V, E, it_k, int(sp["cg_steps"]))
+        if name == "500_poses_500_edges":
+            closure = float(np.linalg.norm(pk[-1, :3, 3].cpu().numpy()
+                                           - true[-1, :3, 3]))
+            ok = (err <= K3_POSE_TOL_M and rot_err <= K3_ROT_TOL
+                  and cost_err <= K3_COST_RTOL and it_k == it_p
+                  and closure < K3_CLOSURE_GATE_M)
+        else:
+            closure = None
+            pose_tol, cost_rtol = PGO_LIMITS[("pgo_1k", "default")]
+            gap, rot, _, cost_ok = _pgo_gaps(pk, sk, pp, sp, cost_rtol)
+            ok = gap <= pose_tol and rot <= K3_ROT_TOL and cost_ok
+        line("k3", shape=name, V=V, E=E, clusters=layout.clusters,
+             in_smem=layout.in_smem, smem_bytes=layout.smem_bytes,
+             iterations=it_k, plain_iterations=it_p,
+             plain_cg_steps=int(sp["cg_steps"]),
+             final_cost=costs["final_cost"][0],
+             plain_final_cost=costs["final_cost"][1], cost_rel_err=cost_err,
+             closure_err_m=closure, rot_err=rot_err, max_abs_err=err,
+             repeats_bitwise=repeats, ms=round(ms, 4),
+             plain_ms=round(pms, 4), bound_ms=round(bnd[0], 5),
+             bound_by=bnd[1])
+        if not (ok and repeats and layout.clusters > 1):
+            raise AssertionError(
+                f"K3 {name} disagrees with its plain version or itself: "
+                f"pose gap {err} m, rotation err {rot_err}, cost rel err "
+                f"{cost_err}, iterations {it_k} vs {it_p}, closure "
+                f"{closure} m, repeats {repeats}, clusters "
+                f"{layout.clusters}")
+        out[name] = (err, ms, pms, bnd, layout)
+    return out
 
 
 def lm_bound(V: int, E: int, lm_iterations: int, cg_steps: int):
@@ -975,7 +1015,7 @@ def phase_crossover(dev):
     from pgslam_tpu_torch.pgo_problems import bucketed_problem
     cfg = pgo.PGOConfig()
     k3_faster = []
-    for V in (512, 1024, 2048, 4096, 16384):
+    for V in (512, 1024, 2048, 4096, 8192, 16384):
         for n_vertices, n_loop in ((3 * V // 4, V // 8), (V, V + 1)):
             args, _ = bucketed_problem(n_vertices, n_loop, device=dev)
             E = args[2].shape[0]
@@ -995,7 +1035,9 @@ def phase_crossover(dev):
             if k3_med < loop_med:
                 k3_faster.append(V + E)
             gap = float((p3[:, :3, 3] - p4[:, :3, 3]).norm(dim=1).max())
+            layout = lm_optimize.layout
             line("crossover", V=V, E=E, n_vertices=n_vertices,
+                 clusters=layout.clusters, in_smem=layout.in_smem,
                  n_edges=n_vertices - 1 + n_loop,
                  k3_ms=",".join(f"{t:.3f}" for t in k3_ms),
                  loop_ms=",".join(f"{t:.3f}" for t in loop_ms),
@@ -1007,6 +1049,51 @@ def phase_crossover(dev):
                  route=pgo.route(cfg, V, E, dev))
     line("crossover", k3_faster_at_sizes=",".join(map(str, k3_faster)),
          K3_MAX_SIZE=pgo.K3_MAX_SIZE)
+
+
+def phase_k3_clusters(dev):
+    """What bounds K3: phase k3's two shapes at fixed cluster sizes (in
+    shared memory where it fits, and in global scratch), each with 64 and
+    with 1 CG step per LM iteration; the difference over the CG steps
+    between is the time of one CG step. ``lm.cluster_layout`` is replaced
+    for the run by a split at the given size."""
+    from pgslam_tpu_torch.optim import lm
+    from pgslam_tpu_torch.optim.pgo import PGOConfig
+    from pgslam_tpu_torch.pgo_problems import named_problem
+    chosen = lm.cluster_layout
+
+    def fixed(C, in_smem):
+        def layout(ptr, budget, *_):
+            ptr = np.asarray(ptr, dtype=np.int64)
+            vstart = lm._split(np.cumsum(4 * lm.VERTEX_WORDS + 4
+                                         * lm.SLOT_WORDS * np.diff(ptr)), C)
+            NV, NS, nbytes = lm._sizes(ptr, vstart)
+            smem = in_smem and nbytes <= budget
+            return lm.ClusterLayout(C, smem, tuple(vstart.tolist()), NV, NS,
+                                    nbytes if smem else 0, int(ptr[-1]))
+        return layout
+
+    shapes = (("500_poses_500_edges", loop_500(dev)[0]),
+              ("pgo_1k_default", named_problem("pgo_1k", device=dev)[0]))
+    try:
+        for name, args in shapes:
+            for C in (None, 2, 4, 8, 12, 16):
+                for in_smem in (True, False):
+                    if C is None and not in_smem:
+                        continue
+                    lm.cluster_layout = chosen if C is None \
+                        else fixed(C, in_smem)
+                    ms = {}
+                    for cg in (64, 1):
+                        cfg = PGOConfig(cg_iterations=cg)
+                        ms[cg], _ = timed(
+                            lambda: lm.lm_optimize(*args, config=cfg), 3)
+                    layout = lm.lm_optimize.layout
+                    line("k3_clusters", shape=name, chosen=C is None,
+                         clusters=layout.clusters, in_smem=layout.in_smem,
+                         ms=round(ms[64], 4), ms_cg_iterations_1=round(ms[1], 4))
+    finally:
+        lm.cluster_layout = chosen
 
 
 def phase_replay(dev, name, keyframes, loops, solver=None):
@@ -1070,6 +1157,9 @@ def main() -> int:
     if "--crossover" in sys.argv[1:]:
         phase_crossover(dev)
         return 0
+    if "--k3-clusters" in sys.argv[1:]:
+        phase_k3_clusters(dev)
+        return 0
     seq = corridor_64k_sequence()
     scans = seq[0]
     k1_err, k1_times = phase_k1(dev, scans)
@@ -1077,7 +1167,7 @@ def main() -> int:
     hcfg, refs, packets, offsets = headline_setup(dev)
     k2h_err, k2h_ms, k2h_pms, k2h_bnd = phase_k2_headline(dev, hcfg, refs,
                                                           packets, offsets)
-    k3_err, k3_ms, k3_pms, k3_bnd = phase_k3(dev)
+    k3 = phase_k3(dev)
     k4 = phase_k4(dev)
 
     wrappers = (knn, fused_icp_register, lm_optimize, pcg_solve)
@@ -1137,6 +1227,8 @@ def main() -> int:
              "fleet": fleet}
     ms1, pms1, bnd1 = k1_times["2048x8192_k1"]
     k4_err, k4_ms, k4_pms, k4_bnd = k4["pgo_16k"]
+    k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
+    k3_1k = k3["pgo_1k_default"]
     rows = [
         ("K1 knn", "knn.cu", "pgslam_tpu/ops/knn_pallas.py:173",
          k1_err, ms1, pms1, bnd1, {}),
@@ -1149,7 +1241,12 @@ def main() -> int:
           "verification_b1_bound_ms": k2_bnd[0],
           "batched_ms_per_batch": batch_ms, "fleet_ms_per_step": fleet_ms}),
         ("K3 lm", "lm.cu", "pgslam_tpu/optim/lm_pallas.py:1142",
-         k3_err, k3_ms, k3_pms, k3_bnd, {}),
+         k3_err, k3_ms, k3_pms, k3_bnd,
+         {"shape": "500 poses + 500 edges, default PGOConfig",
+          "clusters": k3_layout.clusters,
+          "pgo_1k_default_ms": k3_1k[1], "pgo_1k_default_plain_ms": k3_1k[2],
+          "pgo_1k_default_bound_ms": k3_1k[3][0],
+          "pgo_1k_default_clusters": k3_1k[4].clusters}),
         ("K4 pcg", "pcg.cu", "pgslam_tpu/optim/pcg_pallas.py:174",
          k4_err, k4_ms, k4_pms, k4_bnd, {}),
     ]

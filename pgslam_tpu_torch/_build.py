@@ -33,12 +33,15 @@ SIGNATURES = {
     # q, qmask, nq, r, rmask, nr, k, out_d, out_i, stream
     "pgs_knn": (P, P, I, P, P, I, I, P, P, P),
     # reading, rmask, nq, coarse_div, ref, normals, refmask, nr, T0,
-    # params, iparams, scratch, out, batch, stream
-    "pgs_icp_fused": (P, P, I, I, P, P, P, I, P, P, P, P, P, I, P),
-    # poses, vmask, V, ef, et, Zinv, cov, emask, rmask, E, fixed,
-    # csr_ptr, csr_ent, params(float*), iparams(int*), scratch, out_poses,
-    # out_stats, stream
-    "pgs_lm": (P, P, I, P, P, P, P, P, P, I, I, P, P, P, P, P, P, P, P),
+    # params, iparams, scratch, window, out, batch, stream
+    "pgs_icp_fused": (P, P, I, I, P, P, P, I, P, P, P, P, P, P, I, P),
+    # poses, vmask, V, ef, et, edge_T, cov, rmask, fixed, meta, C, NV, NS,
+    # smem bytes, params (host float*), iparams (host int*), scratch,
+    # out_poses, out_stats, stream
+    "pgs_lm": (P, P, I, P, P, P, P, P, I, P, I, I, I, I, P, P, P, P, P, P),
+    # out (host int[3]): CTA shared-memory budget, largest cluster with it,
+    # largest cluster without
+    "pgs_lm_limits": (P,),
     # Hff, Htt, Hft, Pinv, damp, b, prior, ef, et, csr_ptr, csr_ent, V, E,
     # fixed, cg_iterations, cg_tol, x, scratch, grid_out (host int*), stream
     "pgs_pcg": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P, P, P, P),

@@ -12,7 +12,9 @@
 //   step    point-to-plane: 6x6 normal equations + 1e-6 I, closed-form Schur
 //           inverse; point-to-point: polar factor of the weighted
 //           cross-covariance; identity step below MIN_SUPPORT;
-//   check   iteration cap and the smoothed differential checker;
+//   check   iteration cap and the smoothed differential checker over a
+//           window of L = smooth_length steps (any L: thread 0 keeps it in
+//           a per-block slice of global scratch, win[2L]);
 //   final   overlap, residual and the 6x6 covariance at the solution.
 // An optional coarse stage runs first on reading[::coarse_div]. With
 // anderson_m in 2..4 both stages run the Anderson-accelerated update
@@ -46,7 +48,6 @@ constexpr int NT = 512;
 constexpr int PPT = 4;
 constexpr int CHUNK = NT * PPT;
 constexpr int TILE = NT;
-constexpr int MAXL = 8;
 constexpr int MAXM = 4;  // Anderson window
 constexpr float MIN_SUPPORT = 6.0f;
 constexpr int SCR = 10;  // per point: pp[3], q[3], n[3], d2
@@ -70,6 +71,7 @@ struct Problem {
   const bool* refm;    // [NR]
   int nr;
   float* scr;          // [NQ, SCR]
+  float* win;          // [2L]: the checker's dt window, then its dr window
   float trans_eps, rot_eps, trim, maxd2;
   int p2plane, max_it, coarse_it, L, aa_m;
 };
@@ -378,9 +380,10 @@ __device__ void anderson_update(Anderson& aa, int m, int it, const float* T,
 // One stage of the iterate loop on reading[::stride]; updates sh.T.
 __device__ int run_stage(const Problem& P, Shared& sh, int stride, int n,
                          int max_it, int* converged) {
-  float dts[MAXL], drs[MAXL];  // meaningful in thread 0
-#pragma unroll
-  for (int k = 0; k < MAXL; ++k) { dts[k] = INFINITY; drs[k] = INFINITY; }
+  float* dts = P.win;  // thread 0's
+  float* drs = P.win + P.L;
+  if (threadIdx.x == 0)
+    for (int k = 0; k < 2 * P.L; ++k) P.win[k] = INFINITY;
   int it = 0;
   Anderson aa;  // thread 0's, used when P.aa_m > 1
   if (threadIdx.x == 0) {
@@ -447,7 +450,8 @@ icp_fused_kernel(const float* __restrict__ reading, const bool* rdmask, int nq,
                  int coarse_div, const float* __restrict__ ref,
                  const float* __restrict__ nrm, const bool* refmask, int nr,
                  const float* __restrict__ T0, const float* params,
-                 const int* iparams, float* scratch, float* out) {
+                 const int* iparams, float* scratch, float* window,
+                 float* out) {
   __shared__ Shared sh;
   const int b = blockIdx.x;
   Problem P;
@@ -468,6 +472,7 @@ icp_fused_kernel(const float* __restrict__ reading, const bool* rdmask, int nq,
   P.coarse_it = iparams[2];
   P.L = iparams[3];
   P.aa_m = iparams[4];
+  P.win = window + (size_t)b * 2 * P.L;
   if (threadIdx.x < 16) sh.T[threadIdx.x] = T0[(size_t)b * 16 + threadIdx.x];
   __syncthreads();
 
@@ -548,10 +553,11 @@ extern "C" int pgs_icp_fused(const float* reading, const bool* rdmask, int nq,
                              int coarse_div, const float* ref,
                              const float* nrm, const bool* refmask, int nr,
                              const float* T0, const float* params,
-                             const int* iparams, float* scratch, float* out,
-                             int batch, void* stream) {
+                             const int* iparams, float* scratch,
+                             float* window, float* out, int batch,
+                             void* stream) {
   icp_fused_kernel<<<batch, NT, 0, (cudaStream_t)stream>>>(
       reading, rdmask, nq, coarse_div, ref, nrm, refmask, nr, T0, params,
-      iparams, scratch, out);
+      iparams, scratch, window, out);
   return (int)cudaGetLastError();
 }

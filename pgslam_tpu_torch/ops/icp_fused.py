@@ -55,24 +55,20 @@ from .minimizer import MIN_SUPPORT
 OUT_WIDTH = 56
 # Per reading point: transformed point, matched point, matched normal, d2.
 SCRATCH_WIDTH = 10
-MAX_SMOOTH = 8
 MAX_ANDERSON = 4
 
 
 def fused_eligible(cfg: ICPConfig) -> bool:
-    """Whether K2 covers this config's semantics. As in the JAX package,
-    Anderson windows up to ``MAX_ANDERSON`` are eligible. Narrower than
-    it: at most one TrimmedDist and one MaxDist, and ``smooth_length``
-    at most ``MAX_SMOOTH`` (such configs run ``icp_core``)."""
-    n_trim = sum(isinstance(f, O.TrimmedDist) for f in cfg.outlier)
-    n_max = sum(isinstance(f, O.MaxDist) for f in cfg.outlier)
+    """Whether K2 covers this config's semantics: the gate of
+    ``pgslam_tpu.ops.icp_pallas.fused_eligible``. Any chain of
+    TrimmedDist and MaxDist filters, any ``smooth_length``, Anderson
+    windows up to ``MAX_ANDERSON``."""
     return (cfg.error in ("point_to_plane", "point_to_point")
             and cfg.matcher in ("pallas", "brute")
             and cfg.knn == 1
             and (not cfg.anderson_m or cfg.anderson_m <= MAX_ANDERSON)
-            and n_trim + n_max == len(cfg.outlier)
-            and n_trim <= 1 and n_max <= 1
-            and max(1, cfg.smooth_length) <= MAX_SMOOTH)
+            and all(isinstance(f, (O.TrimmedDist, O.MaxDist))
+                    for f in cfg.outlier))
 
 
 def _anderson(cfg: ICPConfig) -> bool:
@@ -80,11 +76,18 @@ def _anderson(cfg: ICPConfig) -> bool:
 
 
 def _outlier_params(cfg: ICPConfig):
-    trim = next((f.ratio for f in cfg.outlier
-                 if isinstance(f, O.TrimmedDist)), -1.0)
-    maxd = next((f.max_dist for f in cfg.outlier
-                 if isinstance(f, O.MaxDist)), -1.0)
-    return float(trim), float(maxd)
+    """The chain reduced to one TrimmedDist ratio and one MaxDist
+    distance (-1 where the chain has none). Exact: every TrimmedDist
+    thresholds the same hit set at its ``ceil(ratio * n)``-th smallest
+    distance, which grows with the ratio, every MaxDist compares with
+    its distance squared, and the masks multiply
+    (``icp_pallas.py::weights_of``), so the smallest ratio and the
+    smallest squared distance decide."""
+    ratios = [f.ratio for f in cfg.outlier if isinstance(f, O.TrimmedDist)]
+    dists = [abs(f.max_dist) for f in cfg.outlier
+             if isinstance(f, O.MaxDist)]
+    return (float(min(ratios)) if ratios else -1.0,
+            float(min(dists)) if dists else -1.0)
 
 
 # --------------------------------------------------------------------------
@@ -362,12 +365,15 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig):
         dtype=torch.int32, device=dev)
     scratch = torch.empty((B, NQ, SCRATCH_WIDTH), dtype=torch.float32,
                           device=dev)
+    window = torch.empty((B, 2 * max(1, cfg.smooth_length)),
+                         dtype=torch.float32, device=dev)
     out = torch.empty((B, OUT_WIDTH), dtype=torch.float32, device=dev)
     err = _build.lib().pgs_icp_fused(
         reading.points.data_ptr(), reading.mask.data_ptr(), NQ, coarse,
         reference.points.data_ptr(), nrm.data_ptr(),
         reference.mask.data_ptr(), NR, T0.data_ptr(), params.data_ptr(),
-        iparams.data_ptr(), scratch.data_ptr(), out.data_ptr(), B,
+        iparams.data_ptr(), scratch.data_ptr(), window.data_ptr(),
+        out.data_ptr(), B,
         _build.stream_of(T0))
     _build.check(err, "pgs_icp_fused")
     fused_icp_register.launches += 1

@@ -7,30 +7,53 @@ plain PyTorch version with the same contract as
 
 Kernel note. Replaces ``pgslam_tpu/optim/lm_pallas.py::
 lm_optimize_pallas`` (body ``_lm_kernel``). On the H100 a pose-graph LM
-at SLAM sizes (hundreds of poses) is bound by latency, not by FLOPs or
-bytes: each LM iteration is a chain of dependent phases (per-edge
-residuals and 6x6 Jacobian blocks, per-vertex accumulation, up to
-``cg_iterations`` PCG steps of two dot products each, retraction, cost),
-and between launches of small kernels the device would idle. The simple
-design runs the whole loop in one 512-thread block: per-edge blocks go
-to global scratch that the wrapper allocates, vertices gather their
-edges through a CSR order the wrapper builds once per call (no float
-atomics, so sums and accept/reject decisions repeat exactly), and every
-reduction is a fixed-order block reduction. Scalars live in registers,
-uniform across the block.
+at SLAM sizes (hundreds to a few thousand poses) is bound by latency,
+not by FLOPs or bytes: each LM iteration is a chain of dependent phases
+(per-edge residuals and 6x6 Jacobian blocks, per-vertex sums, up to
+``cg_iterations`` PCG steps of two dot products each, retraction,
+cost). The first design ran it in one 512-thread block on one SM, with
+every CG step reading array-of-structs global scratch and taking about
+eight block barriers: 59 us per CG step at 500 poses + 500 edges. This
+design runs one problem per thread-block cluster of C CTAs (up to 16,
+:func:`cluster_layout` picks the smallest whose shared memory holds the
+working set with at most one incidence slot per thread): CTA r owns a contiguous vertex range with the incidence
+slots of its vertices (each unmasked edge once at each end, oriented
+for that end), and keeps the CG working set in its shared memory, read
+by the other CTAs through distributed shared memory. A CG step is two
+cluster barriers; every scalar is the sum of the CTAs' partials in rank
+order, the same bits in every CTA, so decisions agree and a run repeats
+bit for bit (no float atomics). Graphs too large for the largest
+cluster that schedules run the same kernel with those arrays in global
+scratch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
+import numpy as np
 import torch
 
 from .pgo import PGOConfig, finish_poses, lm_optimize_plain
 
 ROBUST_CODES = {"none": 0, "huber": 1, "cauchy": 2, "gm": 3}
-# Scratch floats: per edge info[36] Zinv[16] Hff/Htt/Hft[3*36] bf/bt[12]
-# yf/yt[12]; per vertex cur/cand[32] b[6] D[36] Pinv[36] x/r/z/p/Ap[30].
-EDGE_SCRATCH = 36 + 16 + 108 + 12 + 12
-VERTEX_SCRATCH = 32 + 6 + 36 + 36 + 30
+MAX_CLUSTER = 16
+# At most one incidence slot per thread of a CTA (csrc/lm.cu, NT): a CTA
+# with more runs each CG step's products and each build serially.
+SLOTS_PER_CTA = 256
+# Per-CTA working set (csrc/lm.cu, struct Off), in 4-byte words: per
+# vertex D, P^-1 [36 each], x, r, z, p[2], Ap [6 each] and its slot
+# pointer; per incidence slot the oriented off-diagonal block [36], its
+# product [6] and the other end's location; 4 more for the last pointer.
+VERTEX_WORDS = 108 + 1
+SLOT_WORDS = 42 + 1
+# Per-slot fields kept in global scratch: Z^-1 [16], information [36],
+# this end's diagonal block [36] and gradient [6].
+GLOBAL_SLOT_WORDS = 94
+META_CODE = 20            # the meta table's slot codes start here
+LOC_SHIFT = 24            # a slot's other end: rank << 24 | local vertex
 
 
 def edge_csr(edge_from, edge_to, V: int, emask=None):
@@ -59,8 +82,133 @@ def edge_csr(edge_from, edge_to, V: int, emask=None):
     return ptr, entries
 
 
+def _ceil4(n):
+    """A CTA's vertex or slot count rounded up to its arrays' stride
+    (``csrc/lm.cu::ceil4``)."""
+    return np.maximum(4, (np.asarray(n) + 3) // 4 * 4)
+
+
+def cta_bytes(NV, NS):
+    """Shared memory of one CTA whose arrays have strides NV (vertices)
+    and NS (slots), as ``csrc/lm.cu::Off``."""
+    return 4 * (VERTEX_WORDS * NV + SLOT_WORDS * NS + 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterLayout:
+    """How one optimize is spread over a cluster: CTA r owns vertices
+    ``vstart[r]:vstart[r + 1]`` and the incidence slots
+    ``ptr[vstart[r]]:ptr[vstart[r + 1]]``, each CTA's arrays strided for
+    its own counts; ``NV`` and ``NS`` are the largest strides (those of
+    the meta table and of the global slices). ``in_smem`` says whether
+    the working set lives in shared memory (``smem_bytes`` per CTA, the
+    largest CTA's) or in global scratch. ``slots`` counts the incidence
+    slots, two per unmasked edge."""
+    clusters: int
+    in_smem: bool
+    vstart: tuple
+    NV: int
+    NS: int
+    smem_bytes: int
+    slots: int
+
+
+def _split(cum: np.ndarray, C: int) -> np.ndarray:
+    """Contiguous ranges of about equal cost: vstart [C + 1]."""
+    targets = cum[-1] * np.arange(1, C) / C
+    inner = np.searchsorted(cum, targets, side="right")
+    return np.concatenate([[0], inner, [len(cum)]]).astype(np.int64)
+
+
+def _sizes(ptr: np.ndarray, vstart: np.ndarray):
+    """(largest vertex stride, largest slot stride, largest CTA bytes)."""
+    nv, ns = _ceil4(np.diff(vstart)), _ceil4(np.diff(ptr[vstart]))
+    return int(nv.max()), int(ns.max()), int(cta_bytes(nv, ns).max())
+
+
+def cluster_layout(ptr, budget: int, max_smem_cluster: int,
+                   max_global_cluster: int) -> ClusterLayout:
+    """The smallest cluster (at most ``max_smem_cluster`` CTAs) whose
+    shared memory, ``budget`` bytes per CTA, holds the working set of the
+    graph whose incidence pointer (:func:`edge_csr`) is ``ptr``, of at
+    least one CTA per ``SLOTS_PER_CTA`` incidence slots.
+    Vertices are split into contiguous ranges of about equal bytes. Where
+    no such cluster exists, ``max_global_cluster`` CTAs with the arrays
+    in global scratch; raises if that is 0 (no cluster schedules)."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    deg = np.diff(ptr)
+    cum = np.cumsum(4 * VERTEX_WORDS + 4 * SLOT_WORDS * deg)
+    largest = min(max_smem_cluster, MAX_CLUSTER)
+    fewest = min(max(1, -(-int(ptr[-1]) // SLOTS_PER_CTA)), largest)
+    for C in range(fewest, largest + 1):
+        vstart = _split(cum, C)
+        NV, NS, nbytes = _sizes(ptr, vstart)
+        if nbytes <= budget:
+            return ClusterLayout(C, True, tuple(vstart.tolist()), NV, NS,
+                                 nbytes, int(ptr[-1]))
+    C = min(max_global_cluster, MAX_CLUSTER)
+    if C < 1:
+        raise RuntimeError("K3: no thread-block cluster schedules on this "
+                           "device")
+    vstart = _split(cum, C)
+    NV, NS, _ = _sizes(ptr, vstart)
+    return ClusterLayout(C, False, tuple(vstart.tolist()), NV, NS, 0,
+                         int(ptr[-1]))
+
+
+def slot_tables(layout: ClusterLayout, ptr, entries, edge_from, edge_to,
+                V: int):
+    """The kernel's int32 meta table: ``vstart`` [C + 1] (padded to
+    ``META_CODE``), then per CTA and slot the slot's code ``2 * edge +
+    side`` (-1 past the CTA's slots), then the location of its edge's
+    other end (``rank << LOC_SHIFT | local vertex``), then per CTA its
+    vertices' slot pointers [NV + 4], local to the CTA."""
+    dev = ptr.device
+    C, NV, NS = layout.clusters, layout.NV, layout.NS
+    vstart = torch.tensor(layout.vstart, dtype=torch.long, device=dev)
+    ptr = ptr.long()
+    n_slots = layout.slots
+    verts = torch.arange(V, device=dev)
+    owner = torch.searchsorted(vstart, verts, right=True) - 1
+    local = verts - vstart[owner]
+    q = torch.arange(n_slots, device=dev)
+    vq = torch.repeat_interleave(verts, ptr[1:] - ptr[:-1],
+                                 output_size=n_slots)
+    rq = owner[vq]
+    sq = q - ptr[vstart[rq]]
+    code = entries[:n_slots].long()
+    edge, side = code >> 1, code & 1
+    far = torch.where(side == 0, edge_to.long()[edge],
+                      edge_from.long()[edge]).clamp(0, V - 1)
+    codes = torch.full((C * NS,), -1, dtype=torch.long, device=dev)
+    other = torch.zeros(C * NS, dtype=torch.long, device=dev)
+    codes[rq * NS + sq] = code
+    other[rq * NS + sq] = (owner[far] << LOC_SHIFT) | local[far]
+    i = torch.arange(NV + 4, device=dev)
+    gv = torch.minimum(vstart[:-1, None] + i, vstart[1:, None])
+    vptr = ptr[gv] - ptr[vstart[:-1]][:, None]
+    head = torch.zeros(META_CODE, dtype=torch.long, device=dev)
+    head[:C + 1] = vstart
+    return torch.cat([head, codes, other, vptr.reshape(-1)]).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(index: int) -> tuple:
+    """(shared memory a CTA may hold, the largest cluster that schedules
+    with that much per CTA, the largest that schedules with none) on CUDA
+    device ``index``, from the kernel's occupancy queries."""
+    from .. import _build
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        _build.check(_build.lib().pgs_lm_limits(out), "pgs_lm_limits")
+    return tuple(out)
+
+
 def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
-            fixed_id, robust_emask, config: PGOConfig):
+            fixed_id, robust_emask, config: PGOConfig, in_smem=None):
+    """Launch K3. ``in_smem=False`` forces the global-scratch placement
+    at the cluster size the shared-memory layout would take (a test of
+    the two placements)."""
     from .. import _build
     dev = poses.device
     V, E = poses.shape[0], edge_from.shape[0]
@@ -85,26 +233,38 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
     if not 0 <= fixed < V:
         raise ValueError(f"fixed_id {fixed} outside 0..{V - 1}")
     ptr, entries = edge_csr(ef, et, V, emask)
-    params = torch.tensor(
-        [config.lambda_init, config.lambda_up, config.lambda_down,
-         1.0 / config.prior_sigma ** 2, config.min_step_norm,
-         config.min_cost_decrease, config.cg_tol, config.robust_delta],
-        dtype=torch.float32, device=dev)
-    iparams = torch.tensor(
-        [config.max_iterations, config.cg_iterations,
-         ROBUST_CODES[config.robust]], dtype=torch.int32, device=dev)
-    scratch = torch.empty(E * EDGE_SCRATCH + V * VERTEX_SCRATCH,
+    budget, c_smem, c_global = device_limits(dev.index
+                                             if dev.index is not None
+                                             else torch.cuda.current_device())
+    layout = cluster_layout(ptr.cpu().numpy(), budget, c_smem, c_global)
+    if in_smem is False and layout.in_smem:
+        layout = dataclasses.replace(layout, in_smem=False, smem_bytes=0)
+    meta = slot_tables(layout, ptr, entries, ef, et, V)
+    C, NV, NS = layout.clusters, layout.NV, layout.NS
+    work = 0 if layout.in_smem else C * int(cta_bytes(NV, NS)) // 4
+    scratch = torch.empty(32 * V + C * GLOBAL_SLOT_WORDS * NS + work,
                           dtype=torch.float32, device=dev)
+    params = (ctypes.c_float * 8)(
+        config.lambda_init, config.lambda_up, config.lambda_down,
+        1.0 / config.prior_sigma ** 2, config.min_step_norm,
+        config.min_cost_decrease, config.cg_tol, config.robust_delta)
+    iparams = (ctypes.c_int * 3)(config.max_iterations, config.cg_iterations,
+                                 ROBUST_CODES[config.robust])
     out = torch.empty((V, 4, 4), dtype=torch.float32, device=dev)
     stats = torch.empty(4, dtype=torch.float32, device=dev)
     err = _build.lib().pgs_lm(
         poses.data_ptr(), vmask.data_ptr(), V, ef.data_ptr(), et.data_ptr(),
-        eT.data_ptr(), ec.data_ptr(), emask.data_ptr(), rmask.data_ptr(),
-        E, fixed, ptr.data_ptr(), entries.data_ptr(), params.data_ptr(),
-        iparams.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        stats.data_ptr(), _build.stream_of(poses))
+        eT.data_ptr(), ec.data_ptr(), rmask.data_ptr(), fixed,
+        meta.data_ptr(), C, NV, NS, layout.smem_bytes, params, iparams,
+        scratch.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        _build.stream_of(poses))
+    if err == -2:
+        raise RuntimeError(f"K3: no cluster of {C} CTAs with "
+                           f"{layout.smem_bytes} bytes of shared memory "
+                           "each schedules")
     _build.check(err, "pgs_lm")
     lm_optimize.launches += 1
+    lm_optimize.layout = layout
     return finish_poses(out, poses, vmask), {
         "initial_cost": stats[0], "final_cost": stats[1],
         "iterations": stats[2].to(torch.int32), "lambda": stats[3]}
@@ -126,3 +286,5 @@ def lm_optimize(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
 
 
 lm_optimize.launches = 0
+# The ClusterLayout of the last launch (cluster size and placement).
+lm_optimize.layout = None

@@ -42,18 +42,21 @@ class PGOConfig:
 
 
 ROBUST = ("none", "huber", "cauchy", "gm")
-# The whole-LM kernel K3 runs in one thread block, so its time grows with
-# V + E while the LM loop with K4 spreads each CG step over the card and
-# pays a host cost per LM iteration that hardly depends on the graph.
-# Under ``"pcg"`` K3 takes graphs with V + E up to this many vertices and
-# edges (padded shapes, as ``Optimizer`` pads them to powers of two). Set
-# from ``python3 chip_smoke.py --crossover``: K3 against the K4 loop under
-# the default PGOConfig on ring trajectories padded as ``Optimizer`` pads
-# them, with E = V (a SLAM run's odometry chain and few loop closures) and
-# E = 2V (``bench.py``'s pgo_1k), on an NVIDIA H100 80GB HBM3 at a 700 W
-# power limit. The card's counterpart of the JAX package's ``fits_vmem`` /
+# Under ``"pcg"`` the whole-LM kernel K3 takes graphs with V + E up to
+# this many vertices and edges (padded shapes, as ``Optimizer`` pads them
+# to powers of two), the LM loop with K4 larger ones. K3 runs one
+# thread-block cluster of up to 16 CTAs; the LM loop with K4 spreads each
+# CG step over the card but pays a host cost per LM iteration that hardly
+# depends on the graph. ``python3 chip_smoke.py --crossover`` (K3 against
+# the K4 loop under the default PGOConfig on ring trajectories padded as
+# ``Optimizer`` pads them, E = V and E = 2V, on an NVIDIA H100 80GB HBM3
+# at a 700 W power limit) found K3 faster at every size up to 16384 +
+# 32768; the gate stops where K3's working set no longer fits the shared
+# memory of the largest cluster that schedules there (4096 + 4096 fits 14
+# CTAs; 4096 + 8192 does not, and would run from global scratch). The
+# card's counterpart of the JAX package's ``fits_vmem`` /
 # ``layout_plan`` gate.
-K3_MAX_SIZE = 3072
+K3_MAX_SIZE = 8192
 DENSE_MAX_ROWS = 8192     # "auto" factorizes while 6V <= this
 
 

@@ -118,6 +118,19 @@ def test_k2_anderson_matches_plain(cuda, m):
     _assert_k2_matches_plain(res, rows)
 
 
+def test_k2_long_checker_window_matches_plain(cuda):
+    """A checker window of 12 steps (any length runs K2, as in the JAX
+    package), with room to converge, against the plain version."""
+    import dataclasses
+    cfg, rd, rf = _icp_pair(cuda, "point_to_plane")
+    cfg = dataclasses.replace(cfg, smooth_length=12, max_iterations=40)
+    T0 = torch.eye(4, device=cuda).expand(3, 4, 4).contiguous()
+    res = fused_icp_register(rd, rf, T0, cfg)
+    rows = fused_icp_register_plain(rd, rf, T0, cfg)
+    assert int(res.iterations[0]) >= 12
+    _assert_k2_matches_plain(res, rows)
+
+
 def _box_problems(cuda, n_distinct, seed=0):
     """Distinct registrations: points on the faces of a box, each moved by
     its own odometry-sized offset (bench.py's twist scales)."""
@@ -250,6 +263,47 @@ def test_k3_matches_plain(cuda, robust):
         torch.testing.assert_close(sk[key], sp[key], atol=0, rtol=1e-3)
 
 
+@pytest.mark.parametrize("robust", ["cauchy", "gm"])
+def test_k3_in_a_cluster_matches_plain(cuda, robust):
+    """test_k3_matches_plain on a graph that spreads over several CTAs,
+    with the robust kernels that test does not take."""
+    args, _ = pose_graph_problem(1024, 1025, device=cuda)
+    rmask = torch.zeros(args[2].shape[0], dtype=torch.bool, device=cuda)
+    rmask[1023:] = True
+    cfg = PGOConfig(max_iterations=4, cg_iterations=16, cg_tol=1e-3,
+                    robust=robust)
+    pk, sk = lm_optimize(*args, rmask, config=cfg)
+    assert lm_optimize.layout.clusters > 1
+    pp, sp = lm_optimize_plain(*args, rmask, config=cfg)
+    assert float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max()) < 1e-4
+    assert float((pk[:, :3, :3] - pp[:, :3, :3]).abs().max()) < 1e-4
+    assert int(sk["iterations"]) == int(sp["iterations"])
+    for key in ("initial_cost", "final_cost"):
+        torch.testing.assert_close(sk[key], sp[key], atol=0, rtol=1e-3)
+
+
+def _same_result(a, b):
+    (pa, sa), (pb, sb) = a, b
+    return torch.equal(pa, pb) and all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def test_k3_repeats_bitwise_in_a_cluster(cuda):
+    """pgo_1k's graph spreads over a cluster of several CTAs; three
+    launches give the same bits, and the global-scratch placement at the
+    same cluster size gives the bits of the shared-memory one."""
+    from pgslam_tpu_torch.optim import lm
+    args, _ = pose_graph_problem(1024, 1025, device=cuda)
+    cfg = PGOConfig(max_iterations=6)
+    runs = [lm_optimize(*args, config=cfg) for _ in range(3)]
+    layout = lm_optimize.layout
+    assert layout.clusters > 1 and layout.in_smem
+    assert all(_same_result(runs[0], r) for r in runs[1:])
+    in_global = lm._launch(*args, None, cfg, in_smem=False)
+    assert not lm_optimize.layout.in_smem
+    assert lm_optimize.layout.clusters == layout.clusters
+    assert _same_result(runs[0], in_global)
+
+
 def _k4_system(cuda, V, n_loop):
     """One LM step's system at the problem's initial poses."""
     args, _ = pose_graph_problem(V, n_loop, device=cuda)
@@ -319,11 +373,13 @@ def test_padded_edges_left_out_of_csr_exactly(cuda):
 
 
 def test_pcg_routes_to_k4_above_threshold(cuda):
-    """The padded shapes of ``pgo_1k`` (V = 1024, E = 2048) stay on K3 and
-    those of a 1536-pose run (V = E = 2048) go to the loop with K4."""
+    """The padded shapes of a 3072-pose run (V = E = 4096, at the gate)
+    stay on K3, in a cluster's shared memory, and those of a 4096-pose
+    run with 4097 loop edges (V = 4096, E = 8192) go to the loop with
+    K4."""
     cfg = PGOConfig(max_iterations=2, cg_iterations=16, cg_tol=1e-3)
-    for (n, n_loop), kernel in (((1024, 1025), lm_optimize),
-                                ((1536, 256), pcg_solve)):
+    for (n, n_loop), kernel in (((3072, 512), lm_optimize),
+                                ((4096, 4097), pcg_solve)):
         args, _ = bucketed_problem(n, n_loop, device=cuda)
         V, E = args[0].shape[0], args[2].shape[0]
         assert (V + E <= pgo.K3_MAX_SIZE) == (kernel is lm_optimize)
@@ -333,6 +389,8 @@ def test_pcg_routes_to_k4_above_threshold(cuda):
         after = (lm_optimize.launches, pcg_solve.launches)
         ran = [a > b for a, b in zip(after, before)]
         assert ran == [kernel is lm_optimize, kernel is pcg_solve]
+        if kernel is lm_optimize:
+            assert lm_optimize.layout.in_smem
         assert torch.isfinite(out).all()
         assert float(stats["final_cost"]) < float(stats["initial_cost"])
 

@@ -123,23 +123,65 @@ def test_degenerate_reading_and_bound_checker():
 
 def test_eligibility_gate():
     from pgslam_tpu.ops.icp_pallas import fused_eligible as j_eligible
-    from pgslam_tpu_torch.ops.icp_fused import MAX_SMOOTH
     assert fused_eligible(_cfg(error="point_to_point")[1])
     # Anderson windows as the JAX package takes them: m <= 4 in-kernel.
     for m, ok in ((3, True), (4, True), (5, False)):
         jcfg, tcfg = _cfg(anderson_m=m)
         assert fused_eligible(tcfg) == j_eligible(jcfg) == ok, m
     assert not fused_eligible(_cfg(knn=2)[1])
-    # Narrower than JAX (ROADMAP queue 3): two filters of one kind, or a
-    # checker window above MAX_SMOOTH, run icp_core in the port.
+    # The JAX package's gate: two filters of one kind and any checker
+    # window run K2.
     for kw in ({"outlier": (JO.TrimmedDist(0.9), JO.TrimmedDist(0.8))},
                {"outlier": (JO.MaxDist(1.0), JO.MaxDist(0.5))},
-               {"smooth_length": MAX_SMOOTH + 1}):
+               {"smooth_length": 12}):
         jcfg, tcfg = _cfg(**kw)
-        assert j_eligible(jcfg) and not fused_eligible(tcfg), kw
-    assert fused_eligible(_cfg(smooth_length=MAX_SMOOTH)[1])
+        assert fused_eligible(tcfg) == j_eligible(jcfg) == True, kw  # noqa
     with pytest.raises(ValueError):
         fused_icp_register(None, None, None, _cfg(knn=2)[1])
+
+
+CHAIN4 = (JO.TrimmedDist(0.95), JO.MaxDist(1.5), JO.TrimmedDist(0.9),
+          JO.MaxDist(-1.0))
+
+
+def test_outlier_chain_reduces_to_one_filter_of_each_kind():
+    """Two TrimmedDist and two MaxDist give the weights of the smallest
+    ratio and the smallest distance, bit for bit: filter by filter on
+    one set of distances, and through K2's plain version."""
+    from pgslam_tpu_torch.ops import outlier as TO
+    from pgslam_tpu_torch.ops.icp_fused import _outlier_params, _weights
+    _, tcfg4 = _cfg(outlier=CHAIN4)
+    assert _outlier_params(tcfg4) == (0.9, 1.0)
+    rng = np.random.default_rng(3)
+    d2 = torch.as_tensor(rng.exponential(0.6, 500), dtype=torch.float32)
+    hit = torch.as_tensor(rng.random(500) > 0.1)
+    d2 = torch.where(hit, d2, float("inf"))
+    chained = hit.float()
+    for f in tcfg4.outlier:
+        if isinstance(f, TO.TrimmedDist):
+            chained = chained * (d2 <= TO.trimmed_threshold(d2, hit, f.ratio)
+                                 ).float()
+        else:
+            chained = chained * (d2 <= f.max_dist * f.max_dist).float()
+    assert 0 < int(chained.sum()) < int(hit.sum())
+    assert torch.equal(_weights(d2, hit, *_outlier_params(tcfg4)), chained)
+    _, tcfg2 = _cfg()
+    (_, _), (te, tr) = _pair(*_cfg())
+    assert torch.equal(_port(te, tr, tcfg4).T, _port(te, tr, tcfg2).T)
+
+
+def test_plain_with_chain_of_four_matches_icp_core():
+    """test_plain_matches_icp_core's comparison with the chain of four."""
+    jcfg, tcfg = _cfg(outlier=CHAIN4)
+    (je, jr), (te, tr) = _pair(jcfg, tcfg)
+    rx = j_icp_core(jr, je.reference, jse3.identity(), jcfg)
+    rf = _port(te, tr, tcfg)
+    d = tse3.log(tse3.inverse(rf.T[0]) @ torch.from_numpy(np.array(rx.T)))
+    assert float(d.norm()) < 1e-5
+    np.testing.assert_allclose(float(rf.overlap[0]), float(rx.overlap),
+                               atol=0.02)
+    np.testing.assert_allclose(float(rf.residual[0]), float(rx.residual),
+                               rtol=0.05)
 
 
 @pytest.mark.slow

@@ -160,7 +160,7 @@ ROUTES = [
     ("pcg", 1024, tpgo.K3_MAX_SIZE - 1024, "cuda", "lm"),
     ("pcg", 1024, tpgo.K3_MAX_SIZE - 1023, "cuda", "pcg"),
     ("pcg", 1024, 2048, "cuda", "lm"),          # pgo_1k
-    ("pcg", 2048, 2048, "cuda", "pcg"),
+    ("pcg", 4096, 8192, "cuda", "pcg"),
     ("pcg_pallas", 64, 64, "cpu", "pcg"), ("pcg_pallas", 64, 64, "cuda", "pcg"),
     ("pcg_xla", 64, 64, "cuda", "pcg_plain"),
     ("pcg_xla", 64, 64, "cpu", "pcg_plain"),
