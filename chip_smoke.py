@@ -60,6 +60,13 @@ padded shapes ``Optimizer`` sends (the measurement behind
 
 times K3 at phase k3's shapes at fixed cluster sizes and placements,
 with 64 and with 1 CG step per LM iteration (about a minute).
+
+    python3 chip_smoke.py --k2-layouts
+
+times K2 at phase k2's verification shape, at the headline batch and at
+its first 16 entries at fixed layouts (cluster size C, map slices S),
+each against the layout ``k2_layout`` chooses, whose bits every one must
+give (about a minute).
 """
 
 import json
@@ -190,6 +197,22 @@ def timed(fn, reps: int, warmup: int = 1):
     return sum(times) / reps, out
 
 
+def device_ms(fn, kernel: str, reps: int = 3):
+    """Mean device milliseconds of a launch of the kernel named
+    ``kernel``, from a torch.profiler trace of ``reps`` calls of ``fn``
+    (CUDA events around a call also count the wrapper's host work and its
+    small kernels before and after)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0.0) for e in hits)
+    return total / max(1, sum(e.count for e in hits)) / 1e3
+
+
 def bound(nbytes: float, flops: float):
     """(least ms on an H100 at 700 W, what bounds it)."""
     t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
@@ -212,6 +235,10 @@ def phase_device_and_build():
     _build.lib()
     line("build", seconds=round(seconds, 3), library=os.path.basename(path),
          torch=torch.__version__, cuda=torch.version.cuda)
+    from pgslam_tpu_torch.ops.icp_fused import device_limits
+    budget, active = device_limits(torch.cuda.current_device())
+    line("k2_limits", cta_smem_bytes=budget, clusters_held_at_once=",".join(
+        f"C{c}:{n}" for c, n in active.items()))
     return smi
 
 
@@ -323,6 +350,9 @@ def k2_compare(dev, label, rd, rf, T0, cfg, reps, plain_reps, controls=0,
                                                 fused_icp_register_plain,
                                                 result_from_rows)
     ms, res = timed(lambda: fused_icp_register(rd, rf, T0, cfg), reps)
+    layout = fused_icp_register.layout
+    dms = device_ms(lambda: fused_icp_register(rd, rf, T0, cfg),
+                    "icp_fused_kernel")
     pms, rows = timed(lambda: fused_icp_register_plain(rd, rf, T0, cfg),
                       plain_reps, warmup=0)
     plain = result_from_rows(rows, T0, cfg)
@@ -384,7 +414,8 @@ def k2_compare(dev, label, rd, rf, T0, cfg, reps, plain_reps, controls=0,
          cov_rel_err=float(gaps["cov"].max()), max_abs_err=err,
          max_abs_err_within=float(gaps["T"][within].max())
          if n_within else None,
-         **extra, ms=round(ms, 4), plain_ms=round(pms, 4),
+         **extra, layout=layout_name(layout), ms=round(ms, 4),
+         device_ms=round(dms, 4), plain_ms=round(pms, 4),
          bound_ms=round(bnd[0], 5), bound_by=bnd[1])
     if not (n_matched == B and b1_equal == B):
         bad = (~matched).nonzero().flatten().tolist()
@@ -394,15 +425,18 @@ def k2_compare(dev, label, rd, rf, T0, cfg, reps, plain_reps, controls=0,
             f"with a control start's (unmatched: {bad}), {b1_equal} of {B} "
             f"equal to their B = 1 launch, T err {err}, iteration gap "
             f"{it_gap} (limit {slack})")
-    return err, ms, pms, bnd, res, plain
+    return err, ms, pms, bnd, res, plain, layout, dms
 
 
-def phase_k2(dev, seq):
+def layout_name(layout) -> str:
+    """A K2Layout's cluster size C and map slices S, for the log."""
+    return f"C{layout.clusters}xS{layout.slices}"
+
+
+def verification_inputs(dev, seq):
     """A loop-closure verification as the 64k profile runs it: scan 1
-    against the 3-keyframe map of scans 0-2 in scan 1's frame; then the
-    same registration with Anderson acceleration, windows 2 to 4."""
-    import dataclasses
-
+    against the 3-keyframe map of scans 0-2 in scan 1's frame, from an
+    odometry-like guess. Returns (cfg, reading, reference, T0)."""
     import torch
     from pgslam_tpu_torch import se3
     from pgslam_tpu_torch.cloud import make_cloud
@@ -421,6 +455,14 @@ def phase_k2(dev, seq):
     rd, rf = lift(reading), lift(ref)
     T0 = se3.exp(torch.tensor([[0.2, -0.1, 0.0, 0.0, 0.0, 0.02]],
                               device=dev))             # odometry-like guess
+    return cfg, rd, rf, T0
+
+
+def phase_k2(dev, seq):
+    """The verification of :func:`verification_inputs`, then the same
+    registration with Anderson acceleration, windows 2 to 4."""
+    import dataclasses
+    cfg, rd, rf, T0 = verification_inputs(dev, seq)
     out = k2_compare(dev, "k2", rd, rf, T0, cfg, 5, 2, error=cfg.error,
                      coarse_div=cfg.coarse_div, anderson_m=0)
     aa_err = 0.0
@@ -430,7 +472,7 @@ def phase_k2(dev, seq):
                         error=cfg.error, coarse_div=cfg.coarse_div,
                         anderson_m=m)
         aa_err = max(aa_err, aa[0])
-    return out[:4], aa_err
+    return out[:4] + out[6:8], aa_err
 
 
 def headline_setup(dev):
@@ -487,7 +529,92 @@ def phase_k2_headline(dev, cfg, refs, packets, offsets):
         f"{name}_err_{q}_m": round(float(np.quantile(e, x)), 5)
         for name, e in errs.items()
         for q, x in (("q50", 0.5), ("q90", 0.9), ("max", 1.0))})
-    return out[:4]
+    return out[:4] + out[6:8]
+
+
+K2_LAYOUTS = ((1, 1), (1, 4), (2, 8), (4, 4), (8, 2), (8, 16), (16, 4),
+              (16, 16))
+
+
+def phase_k2_layouts(dev, seq):
+    """K2 at the verification shape (B = 1), the headline batch (B = 128)
+    and its first 16 entries (the fleet's batch) at fixed layouts (C, S):
+    five CUDA-event runs each after a warm-up and the kernel's device time
+    from the profiler, every one bit for bit the result of the layout
+    ``k2_layout`` chooses; then, at the chosen layout, the device time of
+    one fine iteration against the whole map and against 256 of its
+    points."""
+    import dataclasses
+
+    import torch
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register, k2_layout
+    cfg, rd, rf, T0 = verification_inputs(dev, seq)
+    hcfg, refs, packets, _ = headline_setup(dev)
+    B = refs.points.shape[0]
+    hrd = packet_cloud(dev, packets[0])
+    hT0 = torch.eye(4, device=dev).expand(B, 4, 4).contiguous()
+    first16 = lambda c: c.map(lambda a: a[:16].contiguous())
+    shapes = (("verification_1x2048x8192", cfg, rd, rf, T0),
+              ("headline_128x1024x8192", hcfg, hrd, refs, hT0),
+              ("headline_16x1024x8192", hcfg, first16(hrd), first16(refs),
+               hT0[:16].contiguous()))
+    fields = ("T", "iterations", "converged", "overlap", "residual", "cov")
+    for name, c, a, b, t in shapes:
+        ms, want = timed(lambda: fused_icp_register(a, b, t, c), 5)
+        chosen = fused_icp_register.layout
+        dms = device_ms(lambda: fused_icp_register(a, b, t, c),
+                        "icp_fused_kernel")
+        line("k2_layouts", shape=name, layout=layout_name(chosen),
+             chosen=True, ms=round(ms, 4), device_ms=round(dms, 4))
+        nq, nr = a.points.shape[1], b.points.shape[1]
+        for C, S in K2_LAYOUTS:
+            if (C, S) == (chosen.clusters, chosen.slices):
+                continue
+            try:
+                lay = k2_layout(nq, nr, a.points.shape[0], clusters=C,
+                                slices=S)
+            except ValueError as e:
+                line("k2_layouts", shape=name, layout=f"C{C}xS{S}",
+                     skipped=str(e).replace(" ", "_"))
+                continue
+            ms, got = timed(lambda: fused_icp_register(a, b, t, c,
+                                                       layout=lay), 5)
+            dms = device_ms(lambda: fused_icp_register(a, b, t, c,
+                                                       layout=lay),
+                            "icp_fused_kernel")
+            equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                        for f in fields)
+            line("k2_layouts", shape=name, layout=layout_name(lay),
+                 chosen=False, ms=round(ms, 4), device_ms=round(dms, 4),
+                 bits_equal=equal)
+            if not equal:
+                raise AssertionError(f"K2 at {name} with layout {lay} "
+                                     "gives other bits")
+        # Where a registration's time goes at the chosen layout: device
+        # time of 1 and 9 fine iterations (no coarse stage, no early stop)
+        # gives the time of one fine iteration and its pair rate; against
+        # the first 256 map points, an iteration's cost besides matching.
+        nq, nr = a.points.shape[1], b.points.shape[1]
+        B1 = a.points.shape[0]
+        for label, ref in (("", b), ("_map256", b.map(
+                lambda v: v[:, :256].contiguous()))):
+            per = {}
+            for its in (1, 9):
+                cc = dataclasses.replace(c, max_iterations=its, coarse_div=0,
+                                         trans_eps=0.0, rot_eps=0.0,
+                                         anderson_m=0)
+                f = lambda: fused_icp_register(a, ref, t, cc)
+                f()
+                per[its] = device_ms(f, "icp_fused_kernel", 5)
+            us = 1e3 * (per[9] - per[1]) / 8
+            pairs = B1 * nq * ref.points.shape[1]
+            line("k2_iteration", shape=name + label,
+                 layout=layout_name(fused_icp_register.layout),
+                 us_per_fine_iteration=round(us, 2),
+                 g_pairs_per_s=round(pairs / us / 1e3, 2),
+                 g_pairs_per_s_per_cta=round(
+                     pairs / us / 1e3 / (B1 * fused_icp_register.layout
+                                         .clusters), 3))
 
 
 def phase_batched(dev, cfg, refs, packets, offsets):
@@ -1161,12 +1288,16 @@ def main() -> int:
         phase_k3_clusters(dev)
         return 0
     seq = corridor_64k_sequence()
+    if "--k2-layouts" in sys.argv[1:]:
+        phase_k2_layouts(dev, seq)
+        return 0
     scans = seq[0]
     k1_err, k1_times = phase_k1(dev, scans)
-    (k2_err, k2_ms, k2_pms, k2_bnd), k2_aa_err = phase_k2(dev, seq)
+    (k2_err, k2_ms, k2_pms, k2_bnd, k2_lay, k2_dms), k2_aa_err = phase_k2(
+        dev, seq)
     hcfg, refs, packets, offsets = headline_setup(dev)
-    k2h_err, k2h_ms, k2h_pms, k2h_bnd = phase_k2_headline(dev, hcfg, refs,
-                                                          packets, offsets)
+    k2h_err, k2h_ms, k2h_pms, k2h_bnd, k2h_lay, k2h_dms = phase_k2_headline(
+        dev, hcfg, refs, packets, offsets)
     k3 = phase_k3(dev)
     k4 = phase_k4(dev)
 
@@ -1235,6 +1366,9 @@ def main() -> int:
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
          max(k2h_err, k2_err, k2_aa_err), k2h_ms, k2h_pms, k2h_bnd,
          {"shape": "128 x 1024 vs 8192, batched_icp_config",
+          "layout": layout_name(k2h_lay), "device_ms": k2h_dms,
+          "verification_b1_layout": layout_name(k2_lay),
+          "verification_b1_device_ms": k2_dms,
           "anderson": "in-kernel, m 2-4 checked",
           "anderson_max_abs_err": k2_aa_err,
           "verification_b1_ms": k2_ms, "verification_b1_plain_ms": k2_pms,

@@ -33,8 +33,13 @@ SIGNATURES = {
     # q, qmask, nq, r, rmask, nr, k, out_d, out_i, stream
     "pgs_knn": (P, P, I, P, P, I, I, P, P, P),
     # reading, rmask, nq, coarse_div, ref, normals, refmask, nr, T0,
-    # params, iparams, scratch, window, out, batch, stream
-    "pgs_icp_fused": (P, P, I, I, P, P, P, I, P, P, P, P, P, P, I, P),
+    # params (host float*), iparams (host int*), window, out, batch, and
+    # the layout: C, S, map_cap, local chunks, smem bytes; stream
+    "pgs_icp_fused": (P, P, I, I, P, P, P, I, P, P, P, P, P, I, I, I, I, I,
+                      I, P),
+    # out (host int[6]): CTA shared-memory budget, then the clusters of 1,
+    # 2, 4, 8 and 16 CTAs with that budget held at once
+    "pgs_icp_fused_limits": (P,),
     # poses, vmask, V, ef, et, edge_T, cov, rmask, fixed, meta, C, NV, NS,
     # smem bytes, params (host float*), iparams (host int*), scratch,
     # out_poses, out_stats, stream

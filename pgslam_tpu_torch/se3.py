@@ -101,8 +101,10 @@ def make(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # Filled on the device: a copy from a host list would synchronize the
+    # stream on every call.
+    bottom = R.new_zeros(batch + (1, 4))
+    bottom[..., 3] = 1.0
     return torch.cat([top, bottom], -2)
 
 

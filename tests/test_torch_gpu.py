@@ -131,9 +131,10 @@ def test_k2_long_checker_window_matches_plain(cuda):
     _assert_k2_matches_plain(res, rows)
 
 
-def _box_problems(cuda, n_distinct, seed=0):
+def _box_problems(cuda, n_distinct, seed=0, capacity=(640, 640)):
     """Distinct registrations: points on the faces of a box, each moved by
-    its own odometry-sized offset (bench.py's twist scales)."""
+    its own odometry-sized offset (bench.py's twist scales), in clouds of
+    the given (reading, reference) capacities."""
     rng = np.random.default_rng(seed)
     half = np.array([4.0, 3.0, 2.0])
     rds, rfs = [], []
@@ -149,9 +150,9 @@ def _box_problems(cuda, n_distinct, seed=0):
             dtype=torch.float32)).numpy()
         moved = ((pts - off[:3, 3]) @ off[:3, :3]
                  + rng.normal(size=pts.shape) * 0.01).astype(np.float32)
-        rfs.append(F.compute_normals(make_cloud(pts.astype(np.float32),
-                                                capacity=640, device=cuda)))
-        rds.append(make_cloud(moved, capacity=640, device=cuda))
+        rfs.append(F.compute_normals(make_cloud(
+            pts.astype(np.float32), capacity=capacity[1], device=cuda)))
+        rds.append(make_cloud(moved, capacity=capacity[0], device=cuda))
     return rds, rfs
 
 
@@ -178,6 +179,132 @@ def test_k2_batch_entries_are_independent(cuda):
     for b in range(4):
         for f in fields:
             assert torch.equal(getattr(res, f)[b], getattr(res, f)[12 + b])
+    _assert_k2_matches_plain(res, fused_icp_register_plain(rd, rf, T0, cfg))
+
+
+def _forced_layouts(nq, nr, B):
+    """K2 layouts at several cluster sizes C and map slice counts S, and
+    one whose map streams through the CTA in passes of 160 points."""
+    import dataclasses
+    from pgslam_tpu_torch.ops.icp_fused import cta_bytes, k2_layout
+    out = [k2_layout(nq, nr, B, clusters=C, slices=S)
+           for C, S in ((1, 1), (2, 1), (1, 4), (4, 2), (8, 5), (16, 16))]
+    lay = k2_layout(nq, nr, B, clusters=2, slices=2)
+    out.append(dataclasses.replace(lay, map_cap=160, smem_bytes=cta_bytes(
+        160, lay.local_chunks, lay.slices)))
+    return out
+
+
+K2_BIT_FIELDS = ("T", "iterations", "converged", "overlap", "residual",
+                 "cov")
+
+
+@pytest.mark.parametrize("error,m", [("point_to_plane", 0),
+                                     ("point_to_point", 0),
+                                     ("point_to_plane", 3)])
+def test_k2_bits_do_not_depend_on_the_layout(cuda, error, m):
+    """Forced cluster sizes (1-16), map slices (1-16) and a streamed map
+    give the bits of the layout K2 chooses, entry by entry, with a
+    reading of 650 slots (its last chunk and the coarse stage's partly
+    empty)."""
+    rds, rfs = _box_problems(cuda, 3, capacity=(650, 700))
+    rd, rf = stack_clouds(rds), stack_clouds(rfs)
+    cfg = ICPConfig(error=error, outlier=(O.TrimmedDist(0.9),
+                                          O.MaxDist(1.0)),
+                    max_iterations=12, coarse_div=4, coarse_iterations=4,
+                    anderson_m=m)
+    T0 = torch.eye(4, device=cuda).expand(3, 4, 4).contiguous()
+    res = fused_icp_register(rd, rf, T0, cfg)
+    layouts = _forced_layouts(650, 700, 3)
+    assert fused_icp_register.layout not in layouts
+    for lay in layouts:
+        forced = fused_icp_register(rd, rf, T0, cfg, layout=lay)
+        assert fused_icp_register.layout == lay
+        for f in K2_BIT_FIELDS:
+            assert torch.equal(getattr(res, f), getattr(forced, f)), (lay, f)
+    _assert_k2_matches_plain(res, fused_icp_register_plain(rd, rf, T0, cfg))
+
+
+def _slice_tie_scene(device, seed=0):
+    """Two maps for one reading. Map A: 512 box points with their normals,
+    then its first 128 points again (indices 512-639) with other unit
+    normals, so that each repeat ties its original exactly and lies in
+    another map slice. Map B: the same with the repeats masked and each
+    original's normal the fp32 mean of the two. Tie averaging makes A and
+    B the same registration, bit for bit. Returns (reading, A, B), each a
+    batch of one."""
+    rng = np.random.default_rng(seed)
+    half = np.array([4.0, 3.0, 2.0])
+    pts = rng.uniform(-1, 1, (512, 3)) * half
+    face = rng.integers(0, 6, 512)
+    axis = face % 3
+    pts[np.arange(512), axis] = (np.where(face < 3, 1.0, -1.0) * half[axis]
+                                 + rng.normal(size=512) * 0.02)
+    pts = pts.astype(np.float32)
+    n1 = F.compute_normals(make_cloud(pts)).descriptors["normals"].numpy()
+    n2 = n1[:128] + rng.normal(size=(128, 3)).astype(np.float32) * 0.3
+    n2 = (n2 / np.linalg.norm(n2, axis=1, keepdims=True)).astype(np.float32)
+    ptsA = np.concatenate([pts, pts[:128]])
+    nA = np.concatenate([n1, n2])
+    nB = nA.copy()
+    nB[:128] = (n1[:128] + n2) / np.float32(2)
+    mB = np.ones(640, bool)
+    mB[512:] = False
+    off = se3.exp(torch.tensor([0.1, -0.08, 0.03, 0.01, -0.02, 0.03])).numpy()
+    moved = ((pts - off[:3, 3]) @ off[:3, :3]
+             + rng.normal(size=pts.shape) * 0.01).astype(np.float32)
+    lift = lambda c: stack_clouds([c])
+    reading = lift(make_cloud(moved, device=device))
+    A = lift(make_cloud(ptsA, descriptors={"normals": nA}, device=device))
+    B = lift(make_cloud(ptsA, mask=mB, descriptors={"normals": nB},
+                        device=device))
+    return reading, A, B
+
+
+@pytest.mark.parametrize("error", ["point_to_plane", "point_to_point"])
+def test_k2_averages_ties_across_map_slices(cuda, error):
+    """Each repeated map point lies in another slice than its original
+    (S = 2 splits the map at 320, S = 5 at multiples of 128): K2 averages
+    the two, and gives map B's bits in every layout."""
+    rd, A, B = _slice_tie_scene(cuda)
+    cfg = ICPConfig(error=error, outlier=(O.TrimmedDist(0.9),
+                                          O.MaxDist(1.0)),
+                    max_iterations=12, coarse_div=0)
+    T0 = torch.eye(4, device=cuda)[None]
+    want = fused_icp_register(rd, B, T0, cfg)
+    for lay in [None] + _forced_layouts(512, 640, 1)[1:]:
+        got = fused_icp_register(rd, A, T0, cfg, layout=lay)
+        for f in K2_BIT_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (lay, f)
+    _assert_k2_matches_plain(want, fused_icp_register_plain(rd, A, T0, cfg))
+
+
+def test_k2_takes_a_velodyne_size_reading(cuda):
+    """65,536 reading points (a Velodyne keyframe's capacity) against an
+    8192-point map: a cluster of 16 CTAs with the map streaming through
+    each, held to phase k2's limits of the plain version."""
+    rng = np.random.default_rng(3)
+    half = np.array([4.0, 3.0, 2.0])
+
+    def box(n):
+        pts = rng.uniform(-1, 1, (n, 3)) * half
+        face = rng.integers(0, 6, n)
+        axis = face % 3
+        pts[np.arange(n), axis] = (np.where(face < 3, 1.0, -1.0)
+                                   * half[axis] + rng.normal(size=n) * 0.02)
+        return pts.astype(np.float32)
+
+    off = se3.exp(torch.tensor([0.1, -0.05, 0.02, 0.01, -0.01, 0.02])).numpy()
+    moved = ((box(65536) - off[:3, 3]) @ off[:3, :3]).astype(np.float32)
+    rf = stack_clouds([F.compute_normals(make_cloud(box(8192), device=cuda))])
+    rd = stack_clouds([make_cloud(moved, device=cuda)])
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
+                    max_iterations=4, coarse_div=8, coarse_iterations=2,
+                    trans_eps=0.0, rot_eps=0.0)
+    T0 = torch.eye(4, device=cuda)[None]
+    res = fused_icp_register(rd, rf, T0, cfg)
+    assert fused_icp_register.layout.clusters == 16
+    assert fused_icp_register.layout.map_cap < 8192
     _assert_k2_matches_plain(res, fused_icp_register_plain(rd, rf, T0, cfg))
 
 

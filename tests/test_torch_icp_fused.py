@@ -197,3 +197,121 @@ def test_plain_matches_fused_pallas_interpret():
     assert abs(int(rf.iterations[0]) - int(rp.iterations[0])) <= 1
     np.testing.assert_allclose(float(rf.overlap[0]), float(rp.overlap[0]),
                                atol=0.01)
+
+
+# -- the kernel's pieces, mirrored on the CPU ---------------------------------
+
+def _threshold_case(kind, n, seed):
+    """Squared distances with heavy ties, zeros, subnormals and misses."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        d2 = rng.integers(0, 5, n).astype(np.float32) * np.float32(0.25)
+    elif kind == "zeros":
+        d2 = np.where(rng.random(n) < 0.5, 0.0, rng.exponential(1, n))
+    elif kind == "subnormal":
+        d2 = rng.integers(1, 50, n) * np.float32(1e-45)
+    else:
+        d2 = rng.exponential(1.0, n) * 10.0 ** rng.integers(-30, 30, n)
+    d2 = torch.as_tensor(np.asarray(d2, np.float32))
+    hit = torch.as_tensor(rng.random(n) > 0.15)
+    hit[0] = True
+    return torch.where(hit, d2, float("inf")), hit
+
+
+@pytest.mark.parametrize("kind", ["ties", "zeros", "subnormal", "wide"])
+@pytest.mark.parametrize("ratio", ["k=1", 0.3, 0.85, "k=n"])
+def test_radix_threshold_equals_sort(kind, ratio):
+    """The kernel's radix select (four 8-bit passes over the float bits)
+    finds the sort's kth-smallest hit distance, bit for bit."""
+    from pgslam_tpu_torch.ops import outlier as TO
+    from pgslam_tpu_torch.ops.icp_fused import radix_threshold
+    for seed, n in ((0, 1), (1, 37), (2, 700), (3, 4096)):
+        d2, hit = _threshold_case(kind, n, seed)
+        n_hit = int(hit.sum())
+        r = {"k=1": 1.0 / n_hit if n_hit > 1 else 1.0,
+             "k=n": 1.0}.get(ratio, ratio)
+        got = radix_threshold(d2, hit, r)
+        want = TO.trimmed_threshold(d2, hit, r)
+        assert got.view(torch.int32) == want.view(torch.int32), (n, r)
+    assert radix_threshold(d2, torch.zeros_like(hit), 0.5) == float("inf")
+
+
+LAYOUT_SHAPES = {"headline": (1024, 8192, 128),
+                 "verification": (2048, 8192, 1),
+                 "loop_replay": (512, 2048, 1),
+                 "fleet": (1024, 4096, 16),
+                 "fleet_verification": (1024, 8192, 17),
+                 "velodyne_keyframes": (65536, 8192, 16)}
+
+
+@pytest.mark.parametrize("shape", list(LAYOUT_SHAPES))
+def test_k2_layout_fits_and_covers_every_point_once(shape):
+    """At the main path's shapes: C <= 16 and a divisor of the tree's 16
+    slot chunks, each CTA within the H100's 232,448 bytes, every reading
+    point of both stages matched exactly once against every map point,
+    and the reduction order a function of nothing."""
+    from pgslam_tpu_torch.ops import icp_fused as K
+    nq, nr, batch = LAYOUT_SHAPES[shape]
+    lay = K.k2_layout(nq, nr, batch)
+    assert lay.clusters in (1, 2, 4, 8, 16) and lay.clusters <= 16
+    need = K.cta_bytes(lay.map_cap, lay.local_chunks, lay.slices)
+    assert need <= lay.smem_bytes <= 232448
+    waves = -(-batch // K.H100_ACTIVE_CLUSTERS[lay.clusters])
+    # one wave, unless the batch exceeds the card even at C = 1 or the
+    # reading needed a wider cluster to fit (the map then streams)
+    assert waves == 1 or lay.clusters == 1 or lay.map_cap < nr
+    if waves == 1:                            # one CTA per SM
+        assert 2 * (lay.smem_bytes + 1024) > 228 * 1024
+    for n, coarse in ((nq, False), (-(-nq // 8), True)):
+        pairs = np.zeros(n, np.int64)
+        for rank in range(lay.clusters):
+            for idx, (lo, hi) in K.k2_items(lay, n, nr, rank, coarse):
+                idx = np.asarray(idx)
+                real = idx[idx < n]
+                # only the tail of the stage's last chunk lies past n
+                assert len(real) > len(idx) - K.CHUNK
+                pairs[real] += hi - lo
+        # each point meets every map point once over slices and passes
+        assert (pairs == nr).all()
+    for other in (1, 16, 128, 1000):
+        o = K.k2_layout(nq, nr, other)
+        assert (o.chunk, o.tree) == (lay.chunk, lay.tree) == (32, 512)
+    assert K.k2_layout(nq, nr, batch, budget=10**9).map_cap == nr
+
+
+def test_k2_layout_forced_and_refused():
+    from pgslam_tpu_torch.ops.icp_fused import k2_layout
+    lay = k2_layout(640, 640, 3, clusters=4, slices=5)
+    assert (lay.clusters, lay.slices) == (4, 5)
+    with pytest.raises(ValueError):
+        k2_layout(640, 640, 3, clusters=3)
+    with pytest.raises(ValueError):
+        k2_layout(10**6, 8192, 1)
+    # the largest cluster whose batch fits the card at once
+    assert [k2_layout(1024, 8192, b).clusters
+            for b in (1, 7, 8, 15, 16, 30, 31, 66, 67, 128, 300)] == \
+        [16, 16, 8, 8, 4, 4, 2, 2, 1, 1, 1]
+
+
+@pytest.mark.parametrize("error", ["point_to_plane", "point_to_point"])
+def test_plain_averages_ties_across_map_slices(error):
+    """The card test's scene (test_torch_gpu.py::_slice_tie_scene): each
+    of 128 map points repeats 512 indices later with another normal; the
+    plain version averages the two, which is map B's registration (the
+    repeats masked, the mean normal in place) bit for bit, and not that of
+    the first copy alone."""
+    from test_torch_gpu import _slice_tie_scene
+    from pgslam_tpu_torch.ops.icp import ICPConfig
+    from pgslam_tpu_torch.ops import outlier as TO
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register_plain
+    rd, A, B = _slice_tie_scene("cpu")
+    cfg = ICPConfig(error=error, outlier=(TO.TrimmedDist(0.9),
+                                          TO.MaxDist(1.0)),
+                    max_iterations=12, coarse_div=0)
+    T0 = torch.eye(4)[None]
+    a = fused_icp_register_plain(rd, A, T0, cfg)
+    assert torch.equal(a, fused_icp_register_plain(rd, B, T0, cfg))
+    first_only = B.replace(descriptors={"normals": A.descriptors["normals"]})
+    if error == "point_to_plane":
+        assert not torch.equal(
+            a, fused_icp_register_plain(rd, first_only, T0, cfg))
