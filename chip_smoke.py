@@ -9,8 +9,10 @@ failure, and prints the final JSON line only when every phase passed):
 1. device and build: the card from ``nvidia-smi``, then the hand-written
    kernels built from ``pgslam_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main paths (K1: 2048x8192 k=1, 8192x8192 k=8,
-   65536x65536 k=1; K2: the 64k profile's loop-closure verification,
+   shapes of the main paths (K1: 2048x8192 k=1, its coarse stage's
+   256x8192 k=1, 8192x8192 k=8, 65536x65536 k=1 and the loop replay's
+   512x1536 k=1, at the layout ``k1_layout`` chooses and at one slice of
+   128 threads, with cdist + topk timed beside; K2: the 64k profile's loop-closure verification,
    2048 vs 8192 points, point-to-plane, coarse_div 8, every output of the
    registration and its final pass, without and with Anderson
    acceleration (windows 2-4), and the headline batch, 128 int16 sensor
@@ -47,7 +49,9 @@ failure, and prints the final JSON line only when every phase passed):
 
 The launch counters are zeroed before each of the paths 3-6 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
-B = 128, K1-K3 with K2 at B = 16). The second-to-last line is the
+B = 128, K1-K3 with K2 at B = 16), and the launches line gives each
+path's most-launched K1 shapes, every one of which phase k1 must have
+checked and timed. The second-to-last line is the
 per-kernel JSON summary; the last is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --crossover
@@ -67,6 +71,13 @@ times K2 at phase k2's verification shape, at the headline batch and at
 its first 16 entries at fixed layouts (cluster size C, map slices S),
 each against the layout ``k2_layout`` chooses, whose bits every one must
 give (about a minute).
+
+    python3 chip_smoke.py --k1-layouts
+
+times K1 at phase k1's shapes at fixed layouts (slices S, threads a CTA
+T, one query a thread; S = 1, T = 128 is the design before the slices),
+each against the layout ``k1_layout`` chooses, whose bits
+every one must give, and against the plain version.
 """
 
 import json
@@ -121,6 +132,13 @@ K3_ROT_TOL = 1e-4         # rotation matrix entries
 K3_COST_RTOL = 1e-3
 K3_CLOSURE_GATE_M = 0.01  # BASELINE config 3's gate (closure_err < 0.01 m)
 K1_D2_RTOL = 1e-5
+# The loop replay's K1 shape (queries, references, k): its reading of 512
+# points against the local map of three 512-point keyframes; every K1
+# launch of the replay has it (knn.shapes; 907 launches on an H100).
+K1_LOOP_SHAPE = (512, 1536, 1)
+# Each path's most-launched K1 shapes that the smoke reads after it; every
+# one must be among phase k1's shapes, which are checked and timed.
+K1_TOP_SHAPES = 3
 K4_X_RTOL = 1e-3          # of max|x_plain|: fp32 CG with another sum order
 K4_RESIDUAL_FACTOR = 1.5  # |A x + b| / |b| <= this * sqrt(cg_tol)
 # The pgo phase holds each route to its plain loop: poses (m) and final
@@ -242,41 +260,163 @@ def phase_device_and_build():
     return smi
 
 
-def phase_k1(dev, scans):
-    import torch
-    from pgslam_tpu_torch.ops.knn import knn, knn_plain
+def k1_cases(scans):
+    """Phase k1's shapes (name, query, reference, k, reps): the 64k
+    profile's scan-to-map match (2048 x 8192), its coarse stage (every
+    8th of those 2048 points, coarse_div 8), its normals (8192 x 8192,
+    k = 8) and a whole scan against a whole scan, from the corridor's
+    scans 0 and 1; and the loop replay's one shape (K1_LOOP_SHAPE), scan
+    3 of its sequence against the map of scans 0-2, in the world frame."""
+    from pgslam_tpu_torch.replays import loop_sequence_golden
     s0, s1 = scans[0], scans[1]
-    cases = [("2048x8192_k1", s1[:2048], s0[:8192], 1, 20),
-             ("8192x8192_k8", s0[:8192], s0[:8192], 8, 10),
-             ("65536x65536_k1", s1, s0, 1, 3)]
+    loop, _, truth = loop_sequence_golden()
+    world = [(c @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+             for c, T in zip(loop[:4], truth[:4])]
+    nq, nr, k = K1_LOOP_SHAPE
+    return [("2048x8192_k1", s1[:2048], s0[:8192], 1, 20),
+            ("256x8192_k1_coarse", s1[:2048][::8], s0[:8192], 1, 20),
+            ("8192x8192_k8", s0[:8192], s0[:8192], 8, 10),
+            ("65536x65536_k1", s1, s0, 1, 3),
+            ("512x1536_k1_loop", world[3][:nq], np.concatenate(world[:3])[:nr],
+             k, 50)]
+
+
+def k1_inputs(dev, q, r):
+    """Phase k1's tensors: every query, and the references but their last
+    sixteenth, unmasked."""
+    import torch
+    qt = torch.as_tensor(q, device=dev)
+    rt = torch.as_tensor(r, device=dev)
+    qm = torch.ones(len(q), dtype=torch.bool, device=dev)
+    rm = torch.ones(len(r), dtype=torch.bool, device=dev)
+    rm[-len(r) // 16:] = False           # masked references too
+    return qt, qm, rt, rm
+
+
+def k1_check(name, mk, mp):
+    """K1's result against the plain version's: ids equal, the same finite
+    pattern, d2 within K1_D2_RTOL of its scale. Returns the d2 error."""
+    import torch
+    if not torch.equal(mk.ids, mp.ids):
+        bad = int((mk.ids != mp.ids).sum())
+        raise AssertionError(f"K1 {name}: {bad} ids differ from plain")
+    fin = torch.isfinite(mp.dists2)
+    if not torch.equal(fin, torch.isfinite(mk.dists2)):
+        raise AssertionError(f"K1 {name}: finite pattern differs")
+    err = float((mk.dists2[fin] - mp.dists2[fin]).abs().max())
+    tol = K1_D2_RTOL * max(1.0, float(mp.dists2[fin].abs().max()))
+    if err > tol:
+        raise AssertionError(f"K1 {name}: d2 err {err} > {tol}")
+    return err
+
+
+def k1_layout_name(lay) -> str:
+    """A K1Layout as S (slices) x T (threads)."""
+    return f"S{lay.slices}xT{lay.threads}"
+
+
+def k1_timed(fn, reps):
+    """(CUDA-event ms, device ms of the kernel from the profiler, result)
+    of a K1 call. A trace that caught no launch of the kernel (seen on an
+    H100 for single microsecond-long launches) is taken again, up to
+    three times; after that the device time is None, not a measurement."""
+    ms, out = timed(fn, reps)
+    for _ in range(3):
+        dms = device_ms(fn, "knn_kernel", max(3, reps // 2))
+        if dms > 0:
+            return ms, dms, out
+    return ms, None, out
+
+
+def r4(v):
+    """``v`` rounded to 4 places, None (not measured) kept."""
+    return None if v is None else round(v, 4)
+
+
+def cdist_topk(q, r, k):
+    """The two-call yardstick beside K1: ``torch.cdist`` and the k least
+    (``argmin`` for k = 1). It ignores the masks, and the port never
+    calls it."""
+    import torch
+    d = torch.cdist(q, r)
+    return d.argmin(dim=1) if k == 1 else d.topk(k, dim=1, largest=False)
+
+
+def phase_k1(dev, scans):
+    """K1 at each of :func:`k1_cases`'s shapes, at the layout k1_layout
+    chooses and at the one-slice layout of one query a thread (the design
+    before the slices), each against the plain version, with CUDA-event
+    and device times, the plain version's time, cdist + topk's and the
+    bound."""
+    import torch
+    from pgslam_tpu_torch.ops.knn import k1_layout, knn, knn_plain
     worst = 0.0
     times = {}
-    for name, q, r, k, reps in cases:
-        qt = torch.as_tensor(q, device=dev)
-        rt = torch.as_tensor(r, device=dev)
-        qm = torch.ones(len(q), dtype=torch.bool, device=dev)
-        rm = torch.ones(len(r), dtype=torch.bool, device=dev)
-        rm[-len(r) // 16:] = False           # masked references too
-        ms, mk = timed(lambda: knn(qt, qm, rt, rm, k=k), reps)
-        pms, mp = timed(lambda: knn_plain(qt, qm, rt, rm, k=k), max(1, reps // 4))
-        if not torch.equal(mk.ids, mp.ids):
-            bad = int((mk.ids != mp.ids).sum())
-            raise AssertionError(f"K1 {name}: {bad} ids differ from plain")
-        fin = torch.isfinite(mp.dists2)
-        if not torch.equal(fin, torch.isfinite(mk.dists2)):
-            raise AssertionError(f"K1 {name}: finite pattern differs")
-        err = float((mk.dists2[fin] - mp.dists2[fin]).abs().max())
-        tol = K1_D2_RTOL * max(1.0, float(mp.dists2[fin].abs().max()))
-        if err > tol:
-            raise AssertionError(f"K1 {name}: d2 err {err} > {tol}")
-        worst = max(worst, err)
+    for name, q, r, k, reps in k1_cases(scans):
+        qt, qm, rt, rm = k1_inputs(dev, q, r)
         n, m = len(q), len(r)
+        pms, mp = timed(lambda: knn_plain(qt, qm, rt, rm, k=k),
+                        max(1, reps // 4))
+        ms, dms, mk = k1_timed(lambda: knn(qt, qm, rt, rm, k=k), reps)
+        lay = knn.layout
+        err = k1_check(name, mk, mp)
+        base = k1_layout(n, m, k, 1, slices=1, threads=128)
+        bms, bdms, mb = k1_timed(lambda: knn(qt, qm, rt, rm, k=k,
+                                             layout=base), reps)
+        err = max(err, k1_check(f"{name} at {k1_layout_name(base)}", mb, mp))
+        cms, _ = timed(lambda: cdist_topk(qt, rt, k), max(1, reps // 4))
+        torch.cuda.empty_cache()
+        worst = max(worst, err)
         bnd = bound(13 * n + 13 * m + 8 * n * k, PAIR_FLOPS * n * m)
-        times[name] = (ms, pms, bnd)
-        line("k1", shape=name, ids_equal=True, max_abs_err=err,
-             ms=round(ms, 4), plain_ms=round(pms, 4),
-             bound_ms=round(bnd[0], 5))
+        times[name] = dict(shape=(n, m, k), ms=ms, device_ms=dms,
+                           plain_ms=pms, bound=bnd,
+                           layout=k1_layout_name(lay), s1_ms=bms,
+                           s1_device_ms=bdms, cdist_topk_ms=cms)
+        line("k1", shape=name, layout=k1_layout_name(lay),
+             ctas=lay.ctas(n), ids_equal=True, max_abs_err=err,
+             ms=round(ms, 4), device_ms=r4(dms),
+             s1_layout=k1_layout_name(base), s1_ms=round(bms, 4),
+             s1_device_ms=r4(bdms), plain_ms=round(pms, 4),
+             cdist_topk_ms=round(cms, 4), bound_ms=round(bnd[0], 5),
+             bound_by=bnd[1])
     return worst, times
+
+
+K1_LAYOUTS = [(S, T) for S in (1, 2, 4, 8, 16) for T in (128, 32)]
+
+
+def phase_k1_layouts(dev, scans):
+    """K1 at each of :func:`k1_cases`'s shapes at fixed layouts (S, T),
+    S = 1, T = 128 (the design before the slices) among them, each
+    against the layout k1_layout chooses, whose bits every one must give,
+    and against the plain version; CUDA-event and device times."""
+    import torch
+    from pgslam_tpu_torch.ops.knn import k1_layout, knn, knn_plain
+    for name, q, r, k, reps in k1_cases(scans):
+        qt, qm, rt, rm = k1_inputs(dev, q, r)
+        n, m = len(q), len(r)
+        mp = knn_plain(qt, qm, rt, rm, k=k)
+        ms, dms, want = k1_timed(lambda: knn(qt, qm, rt, rm, k=k), reps)
+        chosen = knn.layout
+        k1_check(name, want, mp)
+        line("k1_layouts", shape=name, layout=k1_layout_name(chosen),
+             chosen=True, ctas=chosen.ctas(n), ms=round(ms, 4),
+             device_ms=r4(dms))
+        for S, T in K1_LAYOUTS:
+            lay = k1_layout(n, m, k, 1, slices=S, threads=T)
+            if lay == chosen:
+                continue
+            ms, dms, got = k1_timed(lambda: knn(qt, qm, rt, rm, k=k,
+                                                layout=lay), reps)
+            equal = torch.equal(got.ids, want.ids) and torch.equal(
+                got.dists2, want.dists2)
+            line("k1_layouts", shape=name, layout=k1_layout_name(lay),
+                 chosen=False, ctas=lay.ctas(n), ms=round(ms, 4),
+                 device_ms=r4(dms), bits_equal=equal)
+            if not equal:
+                raise AssertionError(f"K1 at {name} with layout {lay} "
+                                     "gives other bits")
+            k1_check(f"{name} at {k1_layout_name(lay)}", got, mp)
 
 
 def k2_gaps(res, ref):
@@ -1291,6 +1431,9 @@ def main() -> int:
     if "--k2-layouts" in sys.argv[1:]:
         phase_k2_layouts(dev, seq)
         return 0
+    if "--k1-layouts" in sys.argv[1:]:
+        phase_k1_layouts(dev, seq[0])
+        return 0
     scans = seq[0]
     k1_err, k1_times = phase_k1(dev, scans)
     (k2_err, k2_ms, k2_pms, k2_bnd, k2_lay, k2_dms), k2_aa_err = phase_k2(
@@ -1307,9 +1450,20 @@ def main() -> int:
         for w in wrappers:
             w.launches = 0
         fused_icp_register.batch_sizes.clear()
+        knn.shapes.clear()
 
     def counts():
         return [w.launches for w in wrappers]
+
+    k1_shapes = {}
+    k1_checked = {t["shape"] for t in k1_times.values()}
+
+    def top_shapes(path):
+        k1_shapes[path] = knn.shapes.most_common(K1_TOP_SHAPES)
+        missed = [s for s, _ in k1_shapes[path] if s not in k1_checked]
+        if missed:
+            raise AssertionError(f"the {path} path launched K1 at {missed}, "
+                                 "which phase k1 neither checks nor times")
 
     reset()
     phase_replay(dev, "corridor_64k", keyframes=4, loops=0)
@@ -1317,6 +1471,7 @@ def main() -> int:
         raise AssertionError("corridor_64k replay never launched K1")
     phase_replay(dev, "loop", keyframes=20, loops=1)
     per_scan = counts()
+    top_shapes("per_scan")
     if min(per_scan[:3]) == 0:
         raise AssertionError(f"a kernel of the per-scan path never ran: "
                              f"{per_scan}")
@@ -1329,10 +1484,12 @@ def main() -> int:
         raise AssertionError("the loop replay under pcg_pallas never "
                              "launched K4")
     pgo_path = counts()
+    top_shapes("pgo")
 
     reset()
     batch_ms = phase_batched(dev, hcfg, refs, packets, offsets)
     batched = counts()
+    top_shapes("batched")
     if batched[1] == 0 or fused_icp_register.batch_sizes[128] == 0:
         raise AssertionError("the batched path never launched K2 at B=128")
     del refs
@@ -1341,6 +1498,7 @@ def main() -> int:
     reset()
     fleet_ms = phase_fleet(dev, seq5)
     fleet = counts()
+    top_shapes("fleet")
     fleet_batches = dict(fused_icp_register.batch_sizes)
     if min(fleet[:3]) == 0 or fleet_batches.get(16, 0) == 0:
         raise AssertionError(f"a kernel of the fleet path never ran (K1-K4 "
@@ -1352,17 +1510,30 @@ def main() -> int:
          fleet=",".join(map(str, fleet)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
-         order="k1,k2,k3,k4")
+         order="k1,k2,k3,k4",
+         **{f"{p}_k1_shapes": ",".join(f"{q}x{r}x{k}:{c}"
+                                       for (q, r, k), c in top) or "none"
+            for p, top in k1_shapes.items()})
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
              "fleet": fleet}
-    ms1, pms1, bnd1 = k1_times["2048x8192_k1"]
+    k1_main = k1_times["2048x8192_k1"]
     k4_err, k4_ms, k4_pms, k4_bnd = k4["pgo_16k"]
     k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
     k3_1k = k3["pgo_1k_default"]
     rows = [
         ("K1 knn", "knn.cu", "pgslam_tpu/ops/knn_pallas.py:173",
-         k1_err, ms1, pms1, bnd1, {}),
+         k1_err, k1_main["ms"], k1_main["plain_ms"], k1_main["bound"],
+         {"shape": "2048 x 8192, k = 1", "layout": k1_main["layout"],
+          "device_ms": k1_main["device_ms"],
+          "cdist_topk_ms": k1_main["cdist_topk_ms"],
+          "s1_ms": k1_main["s1_ms"], "s1_device_ms": k1_main["s1_device_ms"],
+          "by_shape": {n: {f: (v[0] if f == "bound" else v)
+                           for f, v in t.items()}
+                       for n, t in k1_times.items()},
+          "top_shapes_by_path": {p: [f"{q}x{r}x{k}:{c}"
+                                     for (q, r, k), c in top]
+                                 for p, top in k1_shapes.items()}}),
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
          max(k2h_err, k2_err, k2_aa_err), k2h_ms, k2h_pms, k2h_bnd,
          {"shape": "128 x 1024 vs 8192, batched_icp_config",
@@ -1386,7 +1557,8 @@ def main() -> int:
     ]
     # library_ms: no single PyTorch call computes any of these functions
     # (a masked k-NN, a whole ICP registration, a whole LM optimize, a
-    # truncated PCG solve).
+    # truncated PCG solve); K1's row carries cdist + topk, two calls, as
+    # cdist_topk_ms.
     kernels = []
     for k, (name, src, rep, err, ms, pms, bnd, extra) in enumerate(rows):
         by_path = {p: c[k] for p, c in paths.items()}

@@ -30,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # Every C entry point returns cudaGetLastError() after its launch.
 SIGNATURES = {
-    # q, qmask, nq, r, rmask, nr, k, out_d, out_i, stream
-    "pgs_knn": (P, P, I, P, P, I, I, P, P, P),
+    # q, qmask, nq, r, rmask, nr, k, the layout (slices, threads a CTA),
+    # out_d, out_i, stream
+    "pgs_knn": (P, P, I, P, P, I, I, I, I, P, P, P),
     # reading, rmask, nq, coarse_div, ref, normals, refmask, nr, T0,
     # params (host float*), iparams (host int*), window, out, batch, and
     # the layout: C, S, map_cap, local chunks, smem bytes; stream

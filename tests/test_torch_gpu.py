@@ -17,7 +17,7 @@ from pgslam_tpu_torch.ops import outlier as O
 from pgslam_tpu_torch.ops.icp import ICPConfig
 from pgslam_tpu_torch.ops.icp_fused import (fused_icp_register,
                                             fused_icp_register_plain)
-from pgslam_tpu_torch.ops.knn import knn, knn_plain
+from pgslam_tpu_torch.ops.knn import THREADS, k1_layout, knn, knn_plain
 from pgslam_tpu_torch.optim import pgo
 from pgslam_tpu_torch.optim.lm import lm_optimize
 from pgslam_tpu_torch.optim.pcg import pcg_solve
@@ -54,6 +54,66 @@ def test_k1_matches_plain(cuda, k):
     fin = torch.isfinite(mp.dists2)
     assert torch.equal(fin, torch.isfinite(mk.dists2))
     assert float((mk.dists2[fin] - mp.dists2[fin]).abs().max()) < 1e-3
+
+
+def _k1_inputs(cuda, nq, nr, seed=3):
+    """Scan-like inputs: references on a few planes with duplicates far
+    apart in id, queries near them, some of each masked."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-30, 30, (nr, 3)).astype(np.float32)
+    r[::3, 2] = np.round(r[::3, 2] / 5) * 5
+    r[nr - nr // 8:] = r[:nr // 8]
+    q = (r[rng.integers(0, nr, nq)] + rng.normal(0, 0.05, (nq, 3))
+         ).astype(np.float32)
+    qm = np.ones(nq, bool)
+    qm[::97] = False
+    rm = np.ones(nr, bool)
+    rm[nr // 3:nr // 3 + nr // 16] = False
+    return tuple(torch.as_tensor(a, device=cuda) for a in (q, qm, r, rm))
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("nq,nr,k", [(512, 3000, 1), (2048, 8192, 1),
+                                     (8192, 8192, 8)])
+def test_k1_forced_layouts_match_plain(cuda, nq, nr, k, S):
+    """Every forced slice count and threads a CTA gives knn_plain's ids
+    and finite pattern, and d2 within 1e-5 of its scale."""
+    q, qm, r, rm = _k1_inputs(cuda, nq, nr)
+    mp = knn_plain(q, qm, r, rm, k=k)
+    fin = torch.isfinite(mp.dists2)
+    for T in THREADS:
+        lay = k1_layout(nq, nr, k, 132, slices=S, threads=T)
+        mk = knn(q, qm, r, rm, k=k, layout=lay)
+        torch.cuda.synchronize()
+        assert knn.layout == lay
+        assert torch.equal(mk.ids, mp.ids), lay
+        assert torch.equal(torch.isfinite(mk.dists2), fin), lay
+        scale = float(mp.dists2[fin].abs().max())
+        assert float((mk.dists2[fin] - mp.dists2[fin]).abs().max()) \
+            <= 1e-5 * max(1.0, scale), lay
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+@pytest.mark.parametrize("S", [2, 4, 16])
+def test_k1_ties_across_slices_as_on_the_cpu(cuda, S, k):
+    """Exact duplicates k copies deep, spread over the slices, queries on
+    lattice points equidistant from several references, a fully masked
+    slice and masked queries: the card's ids are the CPU's."""
+    rng = np.random.default_rng(S + k)
+    base = np.round(rng.uniform(-4, 4, (300, 3))).astype(np.float32)
+    r = np.tile(base, (k, 1))
+    q = np.concatenate([base[::7], np.round(rng.uniform(-4, 4, (200, 3)))
+                        ]).astype(np.float32)
+    qm = np.ones(len(q), bool)
+    qm[5::11] = False
+    rm = np.ones(len(r), bool)
+    rm[len(r) // S:2 * len(r) // S] = False
+    cpu = knn_plain(*(torch.from_numpy(a) for a in (q, qm, r, rm)), k=k)
+    lay = k1_layout(len(q), len(r), k, 132, slices=S)
+    mk = knn(*(torch.as_tensor(a, device=cuda) for a in (q, qm, r, rm)), k=k,
+             layout=lay)
+    assert torch.equal(mk.ids.cpu(), cpu.ids)
+    assert torch.equal(mk.dists2.cpu(), cpu.dists2)
 
 
 def test_k1_rejects_non_contiguous(cuda):
@@ -401,7 +461,11 @@ def test_k3_in_a_cluster_matches_plain(cuda, robust):
                     robust=robust)
     pk, sk = lm_optimize(*args, rmask, config=cfg)
     assert lm_optimize.layout.clusters > 1
-    pp, sp = lm_optimize_plain(*args, rmask, config=cfg)
+    # The yardstick runs on CPU copies, where index_add_ sums in order: on
+    # the card it sums with atomics, and its costs do not repeat.
+    cpu = [a.cpu() if torch.is_tensor(a) else a for a in (*args, rmask)]
+    pp, sp = lm_optimize_plain(*cpu, config=cfg)
+    pk, sk = pk.cpu(), {key: v.cpu() for key, v in sk.items()}
     assert float((pk[:, :3, 3] - pp[:, :3, 3]).norm(dim=1).max()) < 1e-4
     assert float((pk[:, :3, :3] - pp[:, :3, :3]).abs().max()) < 1e-4
     assert int(sk["iterations"]) == int(sp["iterations"])
