@@ -21,9 +21,13 @@ failure, and prints the final JSON line only when every phase passed):
    plain version from its start or from one a rounding away; K3: a
    500-pose loop under the profile's LM settings (poses, costs and
    iteration count) and ``pgo_1k`` under the default ``PGOConfig``, each
-   launched three times for the same bits, with its cluster size; K4: one LM step's PCG solve of the
-   ``pgo_1k`` and ``pgo_16k`` graphs, agreement, residuals and
-   bit-for-bit repeats), with CUDA-event times after a warm-up;
+   launched three times for the same bits, with its cluster size; K4:
+   one LM step's PCG solve of the ``pgo_1k`` and ``pgo_16k`` graphs and
+   of the loop replay's padded 64 x 64 graph at their initial poses, with
+   the default stop test and run to exactly 64 CG steps, at the layout
+   ``k4_layout`` chooses: agreement, residuals, step counts and
+   bit-for-bit repeats, device time per launch and per CG step), with
+   CUDA-event times after a warm-up;
 3. the per-scan main path: the 64k-point corridor replay (the
    Velodyne-scale profile) through ``PoseGraphSlam.add_data`` against
    ``tests/fixtures/golden_replay_64k.npz``, and the 70-scan loop replay
@@ -51,8 +55,10 @@ The launch counters are zeroed before each of the paths 3-6 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
 B = 128, K1-K3 with K2 at B = 16), and the launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
-checked and timed. The second-to-last line is the
-per-kernel JSON summary; the last is ``{"ok": true, "device": {...}}``.
+checked and timed, and its most-launched K4 shapes, every one of which
+must be one of phase k4's cases, with its mean CG steps a K4 launch. The
+second-to-last line is the per-kernel JSON summary; the last is
+``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --crossover
 
@@ -78,6 +84,21 @@ times K1 at phase k1's shapes at fixed layouts (slices S, threads a CTA
 T, one query a thread; S = 1, T = 128 is the design before the slices),
 each against the layout ``k1_layout`` chooses, whose bits
 every one must give, and against the plain version.
+
+    python3 chip_smoke.py --k4-layouts
+
+times K4 at phase k4's cases and at the padded buckets of 128, 256 and
+512 poses at fixed layouts (CTAs, cluster sizes 1-16,
+the cluster and the cooperative grid barrier, the global placement),
+each against the layout ``k4_layout`` chooses, whose bits every one must
+give, by device time in two passes (about a minute).
+
+    python3 chip_smoke.py --k4-tree DIR
+
+imports ``pgslam_tpu_torch`` from the checkout at DIR (built there at
+first use) and only times its K4 at phase k4's cases, called without a
+plan; two checkouts are compared by running it for each in turns in one
+call on one card.
 """
 
 import json
@@ -1092,66 +1113,243 @@ def lm_bound(V: int, E: int, lm_iterations: int, cg_steps: int):
     return bound(nbytes, flops)
 
 
-def phase_k4(dev):
-    """One LM step's PCG solve at the initial poses of ``pgo_1k`` and
-    ``pgo_16k`` under the default ``PGOConfig`` (up to 64 CG steps,
-    cg_tol 1e-4): K4 against its plain version. Returns, per problem,
-    (max abs err, ms, plain ms, bound)."""
+K4_CASES = ("pgo_1k", "pgo_16k", "loop_64")
+# Padded graphs, (poses, loop edges) padded as Optimizer pads them.
+# loop_64 is the graph of the loop replay's optimize (20 keyframes, 19
+# odometry edges and one loop edge; 64 poses, 64 edges), the shape the
+# replay under pcg_pallas launches K4 at; the others are the next buckets
+# of a growing map (4, 8 and 16 vertex tiles), which --k4-layouts also
+# times.
+K4_PADDED = {"loop_64": (20, 1), "padded_128": (100, 10),
+             "padded_256": (200, 20), "padded_512": (400, 40)}
+# The two systems phase k4 times K4 at: one LM step's system at the
+# initial poses under the default PGOConfig (cg_tol 1e-4, 4-6 steps), and
+# the same system run to exactly cg_iterations = 64 steps (cg_tol 0), the
+# per-step time the LM loop's launches pay (15.4 steps a launch on
+# average at pgo_16k under the default config).
+K4_SYSTEMS = (("initial", 1e-4), ("64_steps", 0.0))
+
+
+def k4_system(dev, name):
+    """(system arguments of pcg_solve, the graph's args) of one LM step at
+    the initial poses of ``name`` (one of :data:`K4_CASES`) under the
+    default ``PGOConfig``."""
     import torch
     from pgslam_tpu_torch.optim import pgo
-    from pgslam_tpu_torch.optim.lm import edge_csr
-    from pgslam_tpu_torch.optim.pcg import pcg_solve
-    from pgslam_tpu_torch.pgo_problems import named_problem
-    cfg = pgo.PGOConfig()
-    kw = dict(cg_iterations=cfg.cg_iterations, cg_tol=cfg.cg_tol,
-              return_iterations=True)
-    out = {}
-    for name in ("pgo_1k", "pgo_16k"):
+    from pgslam_tpu_torch.pgo_problems import bucketed_problem, named_problem
+    if name in K4_PADDED:
+        args, _ = bucketed_problem(*K4_PADDED[name], device=dev)
+    else:
         args, _ = named_problem(name, device=dev)
-        prob = pgo.LMProblem(*args, config=cfg)
-        blocks, b, D = prob.system(args[0])
-        lam = torch.tensor(cfg.lambda_init, device=dev)
-        P_inv, damp = pgo.block_jacobi(D, lam, args[1])
-        sysargs = (blocks, P_inv, damp, b, prob.prior_info, prob.fixed,
-                   prob.ef, prob.et)
+    cfg = pgo.PGOConfig()
+    prob = pgo.LMProblem(*args, config=cfg)
+    blocks, b, D = prob.system(args[0])
+    lam = torch.tensor(cfg.lambda_init, device=dev)
+    P_inv, damp = pgo.block_jacobi(D, lam, args[1])
+    return (blocks, P_inv, damp, b, prob.prior_info, prob.fixed, prob.ef,
+            prob.et), args
+
+
+def k4_bound(V: int, E: int, steps: int):
+    """K4's least time: the three block tensors, P_inv, damping, b and the
+    CSR order read once, x written once; the operations of the steps the
+    solve took and of its start."""
+    nbytes = 3 * 144 * E + V * (144 + 24 + 24) + 4 * (V + 1 + 2 * E) \
+        + 24 * V
+    return bound(nbytes, steps * (CG_EDGE_FLOPS * E + CG_VERTEX_FLOPS * V)
+                 + 96 * V)
+
+
+def k4_timed(fn, reps):
+    """(CUDA-event ms, device ms of the kernel from the profiler, result)
+    of a K4 call, the device trace retaken as :func:`k1_timed` does."""
+    ms, out = timed(fn, reps)
+    for _ in range(3):
+        dms = device_ms(fn, "pcg_kernel", reps)
+        if dms > 0:
+            return ms, dms, out
+    return ms, None, out
+
+
+def k4_layout_name(lay) -> str:
+    """A K4Layout as CTAs x cluster, barrier and placement."""
+    return (f"G{lay.ctas}xC{lay.cluster}_{lay.barrier}_"
+            f"{'smem' if lay.in_smem else 'global'}")
+
+
+def phase_k4(dev):
+    """K4 at the shapes the LM loop launches (:data:`K4_CASES`), at both
+    of :data:`K4_SYSTEMS`, at the layout ``k4_layout`` chooses, with its
+    plan built once as the loop builds it: against its plain version (x within
+    K4_X_RTOL of max|x_plain|, residuals within K4_RESIDUAL_FACTOR *
+    sqrt(1e-4), the step counts equal), three launches for the same bits,
+    CUDA-event and device times per launch and per CG step (the 64-step
+    solve's device time less the initial one's over the steps between),
+    the events' excess over the device time, and the bound. Returns
+    {(problem, system): dict}."""
+    import torch
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optim.pcg import k4_plan, pcg_solve
+    res_tol = K4_RESIDUAL_FACTOR * pgo.PGOConfig().cg_tol ** 0.5
+    out = {}
+    for name in K4_CASES:
+        sysargs, args = k4_system(dev, name)
+        blocks, b = sysargs[0], sysargs[3]
         V, E = b.shape[0], blocks[0].shape[0]
-        csr = edge_csr(prob.ef, prob.et, V)
-        ms, (xk, sk) = timed(lambda: pcg_solve(*sysargs, csr=csr, **kw), 20)
-        x2, _ = pcg_solve(*sysargs, csr=csr, **kw)
-        pms, (xp, sp) = timed(lambda: pgo.pcg_solve_plain(*sysargs, **kw), 3)
-        torch.cuda.synchronize()
-        repeat = torch.equal(xk, x2)
-        err = float((xk - xp).abs().max())
-        scale = float(xp.abs().max())
+        plan = k4_plan(sysargs[6], sysargs[7], V, args[6])
+        lay = plan.layout
+        for system, tol in K4_SYSTEMS:
+            kw = dict(cg_iterations=64, cg_tol=tol, return_iterations=True)
+            call = lambda: pcg_solve(*sysargs, plan=plan, **kw)
+            ms, dms, (xk, sk) = k4_timed(call, 20)
+            runs = [call()[0] for _ in range(3)]
+            pms, (xp, sp) = timed(
+                lambda: pgo.pcg_solve_plain(*sysargs, **kw), 3)
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(xk, x) for x in runs)
+            err = float((xk - xp).abs().max())
+            scale = float(xp.abs().max())
 
-        def rel_residual(x):
-            Ax = pgo.system_matvec(blocks, damp, prob.prior_info, prob.fixed,
-                                   prob.ef, prob.et, x)
-            return float((Ax + b).norm() / b.norm())
+            def rel_residual(x):
+                Ax = pgo.system_matvec(blocks, sysargs[2], sysargs[4],
+                                       sysargs[5], sysargs[6], sysargs[7], x)
+                return float((Ax + b).norm() / b.norm())
 
-        rk, rp = rel_residual(xk), rel_residual(xp)
-        steps = int(sk)
-        # Bound: the three block tensors, P_inv, damping, b, endpoints and
-        # CSR order read once, x written once; the operations of the steps
-        # this solve took and of its start.
-        nbytes = 3 * 144 * E + V * (144 + 24 + 24) + 8 * E \
-            + 4 * (V + 1 + 2 * E) + 24 * V
-        bnd = bound(nbytes, steps * (CG_EDGE_FLOPS * E + CG_VERTEX_FLOPS * V)
-                    + 96 * V)
-        res_tol = K4_RESIDUAL_FACTOR * cfg.cg_tol ** 0.5
-        line("k4", problem=name, V=V, E=E, grid=pcg_solve.grid,
-             cg_steps=steps, plain_cg_steps=sp, max_abs_err=err,
-             max_abs_plain=scale, rel_residual=rk, plain_rel_residual=rp,
-             repeats_bitwise=repeat, ms=round(ms, 4), plain_ms=round(pms, 4),
-             bound_ms=round(bnd[0], 6), bound_by=bnd[1])
-        if not (err <= K4_X_RTOL * scale and rk <= res_tol
-                and rp <= res_tol and repeat and pcg_solve.grid > 1):
-            raise AssertionError(
-                f"K4 {name}: err {err} vs {K4_X_RTOL} * {scale}, residuals "
-                f"{rk} / {rp} vs {res_tol}, repeats {repeat}, grid "
-                f"{pcg_solve.grid}")
-        out[name] = (err, ms, pms, bnd)
+            rk, rp = rel_residual(xk), rel_residual(xp)
+            steps = int(sk)
+            bnd = k4_bound(V, E, steps)
+            out[(name, system)] = dict(
+                V=V, E=E, steps=steps, ms=ms, device_ms=dms, plain_ms=pms,
+                bound=bnd, err=err, layout=lay)
+            line("k4", problem=name, system=system, V=V, E=E,
+                 layout=k4_layout_name(lay), smem_bytes=lay.smem_bytes,
+                 cg_steps=steps, plain_cg_steps=sp, max_abs_err=err,
+                 max_abs_plain=scale, rel_residual=rk,
+                 plain_rel_residual=rp, repeats_bitwise=repeat,
+                 ms=round(ms, 4), device_ms=r4(dms),
+                 events_minus_device_ms=(None if dms is None
+                                         else round(ms - dms, 4)),
+                 device_ms_per_step=(None if dms is None
+                                     else round(dms / steps, 5)),
+                 plain_ms=round(pms, 4), bound_ms=round(bnd[0], 6),
+                 bound_by=bnd[1])
+            if not (err <= K4_X_RTOL * scale and rk <= res_tol
+                    and rp <= res_tol and repeat and steps == sp
+                    and lay.ctas > 1 and lay.in_smem):
+                raise AssertionError(
+                    f"K4 {name} {system}: err {err} vs {K4_X_RTOL} * "
+                    f"{scale}, residuals {rk} / {rp} vs {res_tol}, steps "
+                    f"{steps} vs {sp}, repeats {repeat}, layout {lay}")
+        first, full = out[(name, "initial")], out[(name, "64_steps")]
+        if (first["device_ms"] is not None and full["device_ms"] is not None
+                and full["steps"] > first["steps"]):
+            per_step = (full["device_ms"] - first["device_ms"]) \
+                / (full["steps"] - first["steps"])
+            line("k4_step", problem=name, layout=k4_layout_name(lay),
+                 device_ms_per_step=round(per_step, 5),
+                 device_ms_launch_and_load=round(
+                     first["device_ms"] - first["steps"] * per_step, 5))
+            full["device_ms_per_step"] = per_step
     return out
+
+
+# Phase k4's fixed layouts for --k4-layouts: (CTAs, cluster) with each
+# barrier (optim.pcg.BARRIERS), per problem; None leaves the value to
+# k4_layout (4 CTAs at pgo_1k and 64 at pgo_16k do not fit shared memory
+# and run from global scratch). G8xC8 and G88xC8 with the cluster
+# barrier were the first defaults of this design, clusters of 2 with the
+# grid barrier the second. The global placement is also timed at the
+# chosen layout.
+K4_FIXED = {"pgo_1k": [(32, 2), (32, 4), (32, 8), (32, 16), (16, 1),
+                       (16, 2), (16, 16), (8, 1), (8, 8), (24, 8),
+                       (4, None)],
+            "pgo_16k": [(132, 2), (120, 4), (120, 8), (112, 16), (112, 8),
+                        (96, 8), (88, 8), (66, 2), (64, 4)],
+            "loop_64": [(2, 2), (1, 1)],
+            "padded_128": [(4, 4), (2, 2)],
+            "padded_256": [(8, 8), (4, 4)],
+            "padded_512": [(16, 16), (8, 8)]}
+
+
+def phase_k4_layouts(dev):
+    """K4 at the graphs of :data:`K4_FIXED` (phase k4's cases and the
+    padded buckets) at fixed layouts (CTAs, cluster size, both
+    barriers, the global placement), each checked bit for bit against the
+    layout k4_layout chooses and timed by device time over two passes
+    (their spread is the runs' spread)."""
+    import torch
+    from pgslam_tpu_torch.optim.pcg import k4_plan, pcg_solve
+    for name in K4_FIXED:
+        sysargs, args = k4_system(dev, name)
+        V = sysargs[3].shape[0]
+        plans = [k4_plan(sysargs[6], sysargs[7], V, args[6])]
+        chosen = plans[0].layout
+        forced = [dict(barrier="cluster")]
+        for g, c in K4_FIXED[name]:
+            for barrier in ("cluster", "grid"):
+                forced.append(dict(ctas=g, cluster=c, barrier=barrier))
+        forced.append(dict(in_smem=False))
+        for kw in forced:
+            try:
+                plan = k4_plan(sysargs[6], sysargs[7], V, args[6], **kw)
+            except (RuntimeError, ValueError) as e:
+                line("k4_layouts", problem=name, forced=kw,
+                     refused=str(e).replace(" ", "_")[:120])
+                continue
+            if all(plan.layout != p.layout for p in plans):
+                plans.append(plan)
+        for system, tol in K4_SYSTEMS:
+            kw = dict(cg_iterations=64, cg_tol=tol)
+            want = pcg_solve(*sysargs, plan=plans[0], **kw)
+            times = {}
+            for rnd in range(2):
+                for i, plan in enumerate(plans):
+                    call = lambda: pcg_solve(*sysargs, plan=plan, **kw)
+                    _, dms, got = k4_timed(call, 10)
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"K4 {name} {system} at {plan.layout} gives "
+                            "other bits than the chosen layout")
+                    times.setdefault(i, []).append(dms)
+            for i, plan in enumerate(plans):
+                lay = plan.layout
+                line("k4_layouts", problem=name, system=system,
+                     layout=k4_layout_name(lay), chosen=i == 0,
+                     smem_bytes=lay.smem_bytes, bits_equal=True,
+                     device_ms=",".join(str(r4(t)) for t in times[i]))
+            best = min(range(len(plans)), key=lambda i: min(
+                t for t in times[i] if t is not None))
+            line("k4_layouts", problem=name, system=system,
+                 chosen=k4_layout_name(chosen),
+                 chosen_device_ms=",".join(str(r4(t)) for t in times[0]),
+                 fastest=k4_layout_name(plans[best].layout),
+                 fastest_device_ms=",".join(str(r4(t))
+                                            for t in times[best]))
+
+
+def phase_k4_tree(dev, tree):
+    """K4 of the checkout at ``tree``, whose ``pgslam_tpu_torch`` this
+    process imported, at phase k4's cases and systems, called as a user
+    calls ``pcg_solve`` (no plan: the wrapper builds what it needs at each
+    call): CUDA-event and device ms per launch, and device ms per CG step
+    (the 64-step solve's less the initial one's over the steps between).
+    Two checkouts are compared by running this for each in turns in one
+    call on one card (parent, change, change, parent)."""
+    from pgslam_tpu_torch.optim.pcg import pcg_solve
+    for name in K4_CASES:
+        sysargs, _ = k4_system(dev, name)
+        got = {}
+        for system, tol in K4_SYSTEMS:
+            kw = dict(cg_iterations=64, cg_tol=tol, return_iterations=True)
+            ms, dms, (_, steps) = k4_timed(
+                lambda: pcg_solve(*sysargs, **kw), 20)
+            got[system] = (dms, int(steps))
+            line("k4_tree", tree=tree, problem=name, system=system,
+                 cg_steps=int(steps), ms=round(ms, 4), device_ms=r4(dms))
+        (d0, s0), (d1, s1) = got["initial"], got["64_steps"]
+        if d0 is not None and d1 is not None and s1 > s0:
+            line("k4_tree_step", tree=tree, problem=name,
+                 device_ms_per_step=round((d1 - d0) / (s1 - s0), 5))
 
 
 def _pgo_gaps(pk, sk, pp, sp, cost_rtol=K3_COST_RTOL):
@@ -1405,12 +1603,20 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script measures the "
               "port on a GPU and has no CPU mode", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    argv = sys.argv[1:]
+    tree = os.path.dirname(os.path.abspath(__file__))
+    if "--k4-tree" in argv:
+        tree = os.path.abspath(argv[argv.index("--k4-tree") + 1])
+    sys.path.insert(0, tree)
     try:
-        import pgslam_tpu_torch  # noqa: F401
+        import pgslam_tpu_torch
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
+        return 2
+    if not os.path.abspath(pgslam_tpu_torch.__file__).startswith(tree):
+        print(f"chip_smoke: imported {pgslam_tpu_torch.__file__}, not the "
+              f"port under {tree}", file=sys.stderr)
         return 2
     from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
     from pgslam_tpu_torch.ops.knn import knn
@@ -1421,11 +1627,17 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     phase_device_and_build()
+    if "--k4-tree" in argv:
+        phase_k4_tree(dev, argv[argv.index("--k4-tree") + 1])
+        return 0
     if "--crossover" in sys.argv[1:]:
         phase_crossover(dev)
         return 0
     if "--k3-clusters" in sys.argv[1:]:
         phase_k3_clusters(dev)
+        return 0
+    if "--k4-layouts" in sys.argv[1:]:
+        phase_k4_layouts(dev)
         return 0
     seq = corridor_64k_sequence()
     if "--k2-layouts" in sys.argv[1:]:
@@ -1451,6 +1663,9 @@ def main() -> int:
             w.launches = 0
         fused_icp_register.batch_sizes.clear()
         knn.shapes.clear()
+        pcg_solve.shapes.clear()
+        for total in pcg_solve.cg_steps.values():
+            total.zero_()
 
     def counts():
         return [w.launches for w in wrappers]
@@ -1458,12 +1673,24 @@ def main() -> int:
     k1_shapes = {}
     k1_checked = {t["shape"] for t in k1_times.values()}
 
+    k4_shapes = {}
+    k4_checked = {(k4[(n, "initial")]["V"], k4[(n, "initial")]["E"])
+                  for n in K4_CASES}
+
     def top_shapes(path):
         k1_shapes[path] = knn.shapes.most_common(K1_TOP_SHAPES)
         missed = [s for s, _ in k1_shapes[path] if s not in k1_checked]
         if missed:
             raise AssertionError(f"the {path} path launched K1 at {missed}, "
                                  "which phase k1 neither checks nor times")
+        top = pcg_solve.shapes.most_common(K1_TOP_SHAPES)
+        steps = sum(int(t) for t in pcg_solve.cg_steps.values())
+        k4_shapes[path] = (top, steps / pcg_solve.launches
+                           if pcg_solve.launches else None)
+        missed = [s for s, _ in top if s not in k4_checked]
+        if missed:
+            raise AssertionError(f"the {path} path launched K4 at {missed}, "
+                                 "which phase k4 neither checks nor times")
 
     reset()
     phase_replay(dev, "corridor_64k", keyframes=4, loops=0)
@@ -1513,12 +1740,18 @@ def main() -> int:
          order="k1,k2,k3,k4",
          **{f"{p}_k1_shapes": ",".join(f"{q}x{r}x{k}:{c}"
                                        for (q, r, k), c in top) or "none"
-            for p, top in k1_shapes.items()})
+            for p, top in k1_shapes.items()},
+         **{f"{p}_k4_shapes": ",".join(f"{v}x{e}:{c}"
+                                       for (v, e), c in top) or "none"
+            for p, (top, _) in k4_shapes.items()},
+         **{f"{p}_k4_mean_cg_steps": (None if mean is None
+                                      else round(mean, 3))
+            for p, (_, mean) in k4_shapes.items()})
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
              "fleet": fleet}
     k1_main = k1_times["2048x8192_k1"]
-    k4_err, k4_ms, k4_pms, k4_bnd = k4["pgo_16k"]
+    k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
     k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
     k3_1k = k3["pgo_1k_default"]
     rows = [
@@ -1553,7 +1786,22 @@ def main() -> int:
           "pgo_1k_default_bound_ms": k3_1k[3][0],
           "pgo_1k_default_clusters": k3_1k[4].clusters}),
         ("K4 pcg", "pcg.cu", "pgslam_tpu/optim/pcg_pallas.py:174",
-         k4_err, k4_ms, k4_pms, k4_bnd, {}),
+         max(c["err"] for c in k4.values()), k4_16k["ms"],
+         k4_16k["plain_ms"], k4_16k["bound"],
+         {"shape": "pgo_16k, the initial-pose system, default PGOConfig",
+          "layout": k4_layout_name(k4_16k["layout"]),
+          "device_ms": k4_16k["device_ms"],
+          "by_case": {f"{n}_{s}": {
+              "layout": k4_layout_name(c["layout"]), "cg_steps": c["steps"],
+              "ms": c["ms"], "device_ms": c["device_ms"],
+              "device_ms_per_step": c.get("device_ms_per_step"),
+              "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0]}
+              for (n, s), c in k4.items()},
+          "pgo_1k_device_ms": k4_1k["device_ms"],
+          "top_shapes_by_path": {p: [f"{v}x{e}:{c}" for (v, e), c in top]
+                                 for p, (top, _) in k4_shapes.items()},
+          "mean_cg_steps_by_path": {p: m for p, (_, m)
+                                    in k4_shapes.items()}}),
     ]
     # library_ms: no single PyTorch call computes any of these functions
     # (a masked k-NN, a whole ICP registration, a whole LM optimize, a

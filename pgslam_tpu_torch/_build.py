@@ -48,9 +48,16 @@ SIGNATURES = {
     # out (host int[3]): CTA shared-memory budget, largest cluster with it,
     # largest cluster without
     "pgs_lm_limits": (P,),
-    # Hff, Htt, Hft, Pinv, damp, b, prior, ef, et, csr_ptr, csr_ent, V, E,
-    # fixed, cg_iterations, cg_tol, x, scratch, grid_out (host int*), stream
-    "pgs_pcg": (P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P, P, P, P),
+    # Hff, Htt, Hft, Pinv, damp, b, prior, csr ptr, csr entries, meta, V,
+    # and the layout: CTAs, cluster, NV, NS, smem bytes, in_smem, barrier,
+    # publish; fixed, cg_iterations, cg_tol, scratch and its offsets (bar,
+    # pub, work), out, the step total (int64 [1], added to), stream
+    "pgs_pcg": (P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I,
+                I, F, P, I, I, I, P, P, P),
+    # out (host int[3]): CTA shared-memory budget, SMs, largest cluster
+    "pgs_pcg_limits": (P,),
+    # CTAs, cluster, smem bytes, barrier, out (host int[1]): CTAs resident
+    "pgs_pcg_resident": (I, I, I, I, P),
 }
 
 

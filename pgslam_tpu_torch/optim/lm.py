@@ -156,6 +156,29 @@ def cluster_layout(ptr, budget: int, max_smem_cluster: int,
                          int(ptr[-1]))
 
 
+def slot_ends(vstart, ptr, entries, edge_from, edge_to, n_slots: int):
+    """The incidence slots of a split of the vertices into contiguous
+    ranges ``vstart``: per vertex its range (``owner``) and index in it
+    (``local``); per slot, in the CSR order of ``(ptr, entries)``
+    (:func:`edge_csr`), its vertex, code ``2 * edge + side``, side and
+    the vertex at the edge's other end. Shared by K3's and K4's tables.
+    Returns (vstart, owner, local, vertex, code, side, far) as int64."""
+    dev = ptr.device
+    V = ptr.shape[0] - 1
+    vstart = torch.as_tensor(vstart, dtype=torch.long, device=dev)
+    ptr = ptr.long()
+    verts = torch.arange(V, device=dev)
+    owner = torch.searchsorted(vstart, verts, right=True) - 1
+    local = verts - vstart[owner]
+    vq = torch.repeat_interleave(verts, ptr[1:] - ptr[:-1],
+                                 output_size=n_slots)
+    code = entries[:n_slots].long()
+    side = code & 1
+    far = torch.where(side == 0, edge_to.long()[code >> 1],
+                      edge_from.long()[code >> 1]).clamp(0, V - 1)
+    return vstart, owner, local, vq, code, side, far
+
+
 def slot_tables(layout: ClusterLayout, ptr, entries, edge_from, edge_to,
                 V: int):
     """The kernel's int32 meta table: ``vstart`` [C + 1] (padded to
@@ -165,21 +188,11 @@ def slot_tables(layout: ClusterLayout, ptr, entries, edge_from, edge_to,
     vertices' slot pointers [NV + 4], local to the CTA."""
     dev = ptr.device
     C, NV, NS = layout.clusters, layout.NV, layout.NS
-    vstart = torch.tensor(layout.vstart, dtype=torch.long, device=dev)
+    vstart, owner, local, vq, code, _, far = slot_ends(
+        layout.vstart, ptr, entries, edge_from, edge_to, layout.slots)
     ptr = ptr.long()
-    n_slots = layout.slots
-    verts = torch.arange(V, device=dev)
-    owner = torch.searchsorted(vstart, verts, right=True) - 1
-    local = verts - vstart[owner]
-    q = torch.arange(n_slots, device=dev)
-    vq = torch.repeat_interleave(verts, ptr[1:] - ptr[:-1],
-                                 output_size=n_slots)
     rq = owner[vq]
-    sq = q - ptr[vstart[rq]]
-    code = entries[:n_slots].long()
-    edge, side = code >> 1, code & 1
-    far = torch.where(side == 0, edge_to.long()[edge],
-                      edge_from.long()[edge]).clamp(0, V - 1)
+    sq = torch.arange(layout.slots, device=dev) - ptr[vstart[rq]]
     codes = torch.full((C * NS,), -1, dtype=torch.long, device=dev)
     other = torch.zeros(C * NS, dtype=torch.long, device=dev)
     codes[rq * NS + sq] = code

@@ -344,11 +344,12 @@ def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                      solve: str = "pcg_plain"):
     """The LM loop (port of ``pgo._optimize_xla``) with the linear solve
     ``solve``: ``"pcg_plain"`` (:func:`pcg_solve_plain`), ``"pcg"`` (K4's
-    wrapper :func:`.pcg.pcg_solve`; its edge CSR order is built once
-    here) or ``"dense"`` (:func:`dense_solve`). Returns (poses, stats)
-    with stats ``initial_cost``, ``final_cost``, ``iterations``,
-    ``lambda`` and ``cg_steps`` (PCG steps over the whole optimize, 0 for
-    the dense solve).
+    wrapper :func:`.pcg.pcg_solve`; its plan, the edge CSR order, layout,
+    slot tables and scratch, is built once here) or ``"dense"``
+    (:func:`dense_solve`). Returns (poses, stats) with stats
+    ``initial_cost``, ``final_cost``, ``iterations``, ``lambda`` and
+    ``cg_steps`` (PCG steps over the whole optimize, 0 for the dense
+    solve).
 
     Host syncs: one per LM iteration (accept / stop), plus one per CG
     step with ``pcg_solve_plain``; K4 and the dense solve add none."""
@@ -358,9 +359,9 @@ def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                      emask, fixed_id, robust_emask, config=config)
     ef, et, fixed, prior_info = prob.ef, prob.et, prob.fixed, prob.prior_info
     if solve == "pcg":
-        from .lm import edge_csr
-        from .pcg import pcg_solve
-        csr = edge_csr(ef, et, poses.shape[0], emask)
+        from .pcg import k4_plan, pcg_solve
+        plan = (k4_plan(ef, et, poses.shape[0], emask)
+                if poses.device.type == "cuda" else None)
 
     def linear_solve(blocks, D, lam, b):
         """Returns (x, CG steps)."""
@@ -372,7 +373,7 @@ def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                   return_iterations=True)
         if solve == "pcg":
             return pcg_solve(blocks, P_inv, damp_diag, b, prior_info, fixed,
-                             ef, et, csr=csr, **kw)
+                             ef, et, plan=plan, **kw)
         return pcg_solve_plain(blocks, P_inv, damp_diag, b, prior_info,
                                fixed, ef, et, **kw)
 

@@ -20,7 +20,7 @@ from pgslam_tpu_torch.ops.icp_fused import (fused_icp_register,
 from pgslam_tpu_torch.ops.knn import THREADS, k1_layout, knn, knn_plain
 from pgslam_tpu_torch.optim import pgo
 from pgslam_tpu_torch.optim.lm import lm_optimize
-from pgslam_tpu_torch.optim.pcg import pcg_solve
+from pgslam_tpu_torch.optim.pcg import k4_plan, pcg_solve
 from pgslam_tpu_torch.optim.pgo import PGOConfig, lm_optimize_plain
 from pgslam_tpu_torch.pgo_problems import bucketed_problem, pose_graph_problem
 
@@ -526,7 +526,79 @@ def test_k4_repeats_bitwise(cuda):
     x1 = pcg_solve(*sysargs, **K4_CG)
     x2 = pcg_solve(*sysargs, **K4_CG)
     assert torch.equal(x1, x2)
-    assert pcg_solve.grid > 1
+    assert pcg_solve.layout.ctas > 1
+
+
+def test_k4_adds_its_cg_steps_to_the_total(cuda):
+    sysargs = _k4_system(cuda, 1024, 1025)
+    x, _ = pcg_solve(*sysargs, **K4_CG, return_iterations=True)
+    total = pcg_solve.cg_steps[x.device.index]
+    before = int(total)
+    _, steps = pcg_solve(*sysargs, **K4_CG, return_iterations=True)
+    assert int(steps) > 0 and int(total) == before + int(steps)
+
+
+K4_LAYOUTS = [dict(ctas=4), dict(ctas=16), dict(ctas=8, cluster=8),
+              dict(ctas=16, cluster=4), dict(ctas=12, cluster=1),
+              dict(ctas=32, cluster=8), dict(ctas=32, cluster=2),
+              dict(barrier="cluster"),
+              dict(ctas=8, cluster=1, barrier="cluster"),
+              dict(ctas=16, cluster=4, barrier="cluster"),
+              dict(ctas=16, cluster=16, barrier="cluster")]
+
+
+@pytest.mark.parametrize("forced", K4_LAYOUTS)
+def test_k4_bits_do_not_depend_on_the_layout(cuda, forced):
+    """Every CTA count, cluster size and barrier gives the bits of the
+    layout k4_layout chooses (32 CTAs, one a vertex tile, at this size;
+    4 CTAs do not fit shared memory and run from global scratch)."""
+    sysargs = _k4_system(cuda, 1024, 1025)
+    V = sysargs[3].shape[0]
+    want = pcg_solve(*sysargs, **K4_CG)
+    chosen = pcg_solve.layout
+    plan = k4_plan(sysargs[6], sysargs[7], V, **forced)
+    got = pcg_solve(*sysargs, **K4_CG, plan=plan)
+    assert pcg_solve.layout == plan.layout != chosen
+    for key, value in forced.items():
+        assert getattr(plan.layout, key) == value
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("forced", [{}, dict(ctas=16, cluster=4),
+                                    dict(barrier="cluster")])
+def test_k4_global_placement_gives_the_shared_bits(cuda, forced):
+    sysargs = _k4_system(cuda, 1024, 1025)
+    V = sysargs[3].shape[0]
+    shared = k4_plan(sysargs[6], sysargs[7], V, **forced)
+    in_global = k4_plan(sysargs[6], sysargs[7], V, in_smem=False, **forced)
+    assert shared.layout.in_smem and not in_global.layout.in_smem
+    x_shared = pcg_solve(*sysargs, **K4_CG, plan=shared)
+    x_global = pcg_solve(*sysargs, **K4_CG, plan=in_global)
+    assert torch.equal(x_shared, x_global)
+
+
+def test_k4_at_pgo_16k_matches_plain(cuda):
+    """The pgo_16k graph spreads over several clusters; the solve at its
+    initial poses agrees with the plain version as test_k4_matches_plain
+    asks, and the plan made once serves launches with the same bits."""
+    sysargs = _k4_system(cuda, 16384, 4096)
+    V = sysargs[3].shape[0]
+    plan = k4_plan(sysargs[6], sysargs[7], V)
+    xk, sk = pcg_solve(*sysargs, **K4_CG, plan=plan, return_iterations=True)
+    xp, sp = pgo.pcg_solve_plain(*sysargs, **K4_CG, return_iterations=True)
+    assert plan.layout.ctas > plan.layout.cluster and plan.layout.in_smem
+    assert int(sk) == sp
+    assert float((xk - xp).abs().max()) <= 1e-3 * float(xp.abs().max())
+    assert torch.equal(xk, pcg_solve(*sysargs, **K4_CG, plan=plan))
+
+
+def test_k4_raises_on_a_layout_that_would_not_be_resident(cuda):
+    """1024 CTAs of 512 threads do not fit an H100 at once: the plan
+    raises instead of launching a solve whose barriers never return."""
+    V = 32768
+    ef = torch.arange(V - 1, device=cuda)
+    with pytest.raises(RuntimeError):
+        k4_plan(ef, ef + 1, V, ctas=1024, cluster=1)
 
 
 def test_k4_rejects_bad_input(cuda):
@@ -543,7 +615,6 @@ def test_padded_edges_left_out_of_csr_exactly(cuda):
     """Padded edges carry zero blocks, so K4 gives the same bits with them
     out of its CSR lists, and K3 (which leaves them out) still agrees with
     its plain version on a padded graph."""
-    from pgslam_tpu_torch.optim.lm import edge_csr
     args, _ = bucketed_problem(768, 128, device=cuda)
     V, emask = args[0].shape[0], args[6]
     assert not bool(emask.all())
@@ -552,9 +623,9 @@ def test_padded_edges_left_out_of_csr_exactly(cuda):
     P_inv, damp = pgo.block_jacobi(D, torch.tensor(1e-6, device=cuda),
                                    args[1])
     sysargs = (blocks, P_inv, damp, b, prob.prior_info, 0, prob.ef, prob.et)
-    x_all = pcg_solve(*sysargs, **K4_CG, csr=edge_csr(prob.ef, prob.et, V))
+    x_all = pcg_solve(*sysargs, **K4_CG, plan=k4_plan(prob.ef, prob.et, V))
     x_valid = pcg_solve(*sysargs, **K4_CG,
-                        csr=edge_csr(prob.ef, prob.et, V, emask))
+                        plan=k4_plan(prob.ef, prob.et, V, emask))
     assert torch.equal(x_all, x_valid)
     cfg = PGOConfig(max_iterations=4, cg_iterations=16, cg_tol=1e-3)
     pk, sk = lm_optimize(*args, config=cfg)
