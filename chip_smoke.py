@@ -49,11 +49,24 @@ failure, and prints the final JSON line only when every phase passed):
    agent's final error to truth (gate 0.25 m); the same run again with
    its split by stage; then the fleet of one on the golden loop, the
    ``icp_core`` route against ``golden_replay.npz`` and the K2 route
-   against K2's plain version on the CPU.
+   against K2's plain version on the CPU;
+7. the deferred path: the loop at ``sync_lag=2`` with deferred
+   verification against the JAX package's run
+   (``golden_replay_lag2.npz``: equal counts, gap 0.10 m);
+   ``force_deferred`` at lag 0 against two classic replays; the loop at
+   ``micro_batch=4`` (K2 at B = 4) in the JAX package's streaming
+   envelopes against truth, its gap to ``golden_replay_stream4.npz``
+   printed; BASELINE config 4's live loop, the 64k corridor at
+   ``sync_lag=2``, against ``golden_replay_64k.npz``'s last pose and the
+   lag-shifted truth, ms per scan beside lag 0's (deferred replays are
+   synchronized once, after their flush); and ``PoseGraphSlamMT`` on the
+   loop, lockstep (+-1 scan, 0.10 m) and free-running (final pose).
+   Phase k2 also checks the streaming shape, 4 x 512 vs 1536.
 
-The launch counters are zeroed before each of the paths 3-6 and read
+The launch counters are zeroed before each of the paths 3-7 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
-B = 128, K1-K3 with K2 at B = 16), and the launches line gives each
+B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4), and the
+launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
 checked and timed, and its most-launched K4 shapes, every one of which
 must be one of phase k4's cases, with its mean CG steps a K4 launch. The
@@ -153,6 +166,25 @@ K3_ROT_TOL = 1e-4         # rotation matrix entries
 K3_COST_RTOL = 1e-3
 K3_CLOSURE_GATE_M = 0.01  # BASELINE config 3's gate (closure_err < 0.01 m)
 K1_D2_RTOL = 1e-5
+# The deferred path. The streaming batch (micro_batch) and the lag of
+# BASELINE config 4's live loop (examples/velodyne_slam.py:29-78).
+STREAM_BATCH = 4
+LIVE_LAG = 2
+# force_deferred at lag 0 is held to the classic replay within the gap
+# between two classic replays in the same process, plus this (m): the
+# card's classic replay need not repeat its bits (index_add_ and scatter
+# sum with atomics there).
+DEFERRED0_SLACK_M = 1e-6
+# tests/test_golden_replay.py:232-266's streaming envelopes against
+# truth: the flushed final pose, and each scan against the nearest truth
+# pose of its trailing window of micro_batch scans, below max(floor,
+# factor x) the golden fixture's own error.
+STREAM_FINAL_TRUTH_M = 0.15
+STREAM_TRUTH_FLOOR_M, STREAM_TRUTH_FACTOR = 0.5, 2.5
+# The 64k corridor at lag 2: each scan's error to the lag-shifted truth
+# below max(floor, factor x) the lag-0 fixture's own
+# (tests/test_golden_replay.py:311-318's lag-2 envelope).
+LAG2_TRUTH_FLOOR_M, LAG2_TRUTH_FACTOR = 0.30, 2.0
 # The loop replay's K1 shape (queries, references, k): its reading of 512
 # points against the local map of three 512-point keyframes; every K1
 # launch of the replay has it (knn.shapes; 907 launches on an H100).
@@ -634,6 +666,43 @@ def phase_k2(dev, seq):
                         anderson_m=m)
         aa_err = max(aa_err, aa[0])
     return out[:4] + out[6:8], aa_err
+
+
+def stream_inputs(dev):
+    """The streaming path's K2 batch (``micro_batch=4``) on the golden
+    loop: scans 3-6 (512 points) against four copies of one local map,
+    scans 0-2 in scan 2's frame (1536 points), from odometry guesses,
+    under the loop's point-to-point config. The copies are materialized,
+    as ``localizer.prepare_register_stream`` does. Returns (cfg, readings,
+    references, T0)."""
+    import torch
+    from pgslam_tpu_torch.cloud import make_cloud, stack_clouds
+    from pgslam_tpu_torch.replays import loop_config, loop_sequence_golden
+    cfg = loop_config()
+    cap = cfg.localizer.keyframe_cloud_capacity
+    scans, odom, _ = loop_sequence_golden()
+    inv = np.linalg.inv(np.asarray(odom[2], np.float64))
+    rel = [inv @ np.asarray(o, np.float64) for o in odom[:7]]
+    local = np.concatenate([s @ T[:3, :3].T + T[:3, 3]
+                            for s, T in zip(scans[:3], rel[:3])])
+    ref = make_cloud(local.astype(np.float32), capacity=3 * cap, device=dev)
+    B = STREAM_BATCH
+    rf = ref.map(lambda a: a[None].expand(B, *a.shape).contiguous())
+    rd = stack_clouds([make_cloud(scans[3 + j], capacity=cap, device=dev)
+                       for j in range(B)])
+    T0 = torch.as_tensor(np.stack(rel[3:3 + B]).astype(np.float32),
+                         device=dev)
+    return cfg.localizer.icp, rd, rf, T0
+
+
+def phase_k2_stream(dev):
+    """K2 at the streaming shape: every entry bit-equal to its own B = 1
+    launch and within phase k2's limits of the plain version."""
+    cfg, rd, rf, T0 = stream_inputs(dev)
+    out = k2_compare(dev, "k2_stream", rd, rf, T0, cfg, 5, 2,
+                     controls=K2_CONTROLS, error=cfg.error,
+                     coarse_div=cfg.coarse_div, anderson_m=0)
+    return out[:4] + out[6:8]
 
 
 def headline_setup(dev):
@@ -1593,6 +1662,176 @@ def phase_replay(dev, name, keyframes, loops, solver=None):
     return gap, ms_scan
 
 
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _ms_per_scan(per_scan, stats):
+    """Wall ms per scan of a replay synchronized once, after its flush."""
+    return 1e3 * stats["seconds"] / stats.get("n_scans", len(per_scan))
+
+
+def _truth_errs(per_scan, truth, lag=0):
+    """tests/test_golden_replay.py::_truth_errs: each scan's error to the
+    truth pose ``lag`` scans back (the reported pose trails by the commit
+    lag); the last, flushed pose against the last truth."""
+    t = np.stack(truth)
+    idx = np.maximum(np.arange(len(per_scan)) - lag, 0)
+    idx[-1] = len(per_scan) - 1
+    return np.linalg.norm(per_scan[:, :3, 3] - t[idx, :3, 3], axis=1)
+
+
+def _counts_line(stats, fix):
+    return dict(keyframes=stats["n_keyframes"], loop_edges=stats["n_loops"],
+                fixture_keyframes=int(fix["n_keyframes"]),
+                fixture_loop_edges=int(fix["n_loop_edges"]))
+
+
+def phase_loop_lag2(dev):
+    """The loop at sync_lag 2 with deferred verification against the JAX
+    package's run (golden_replay_lag2.npz): equal counts, every scan
+    within POSE_TOL_M."""
+    from pgslam_tpu_torch import replays
+    per_scan, _, stats = replays.run_replay(
+        "loop_lag2", device=dev, sync=_sync, sync_every_scan=False)
+    fix = replays.fixture("loop_lag2")
+    gap = replays.max_pose_gap(per_scan, fix["per_scan_poses"])
+    ms = _ms_per_scan(per_scan, stats)
+    line("replay_loop_lag2", scans=len(per_scan), **_counts_line(stats, fix),
+         max_gap_m=round(gap, 5), ms_per_scan=round(ms, 3))
+    if not (np.isfinite(per_scan).all() and gap <= POSE_TOL_M
+            and stats["n_keyframes"] == int(fix["n_keyframes"])
+            and stats["n_loops"] == int(fix["n_loop_edges"])):
+        raise AssertionError(f"replay_loop_lag2: gap {gap}, {stats}")
+    return ms
+
+
+def classic_baselines(dev):
+    """The classic (lag-0, unforced) replays the deferred path is compared
+    with, run before that path's counters are reset so that its launch
+    counts are its own: two loop replays and the 64k corridor
+    synchronized once after the flush."""
+    from pgslam_tpu_torch import replays
+    loops = [replays.run_replay("loop", device=dev) for _ in range(2)]
+    corridor = replays.run_replay("corridor_64k", device=dev, sync=_sync,
+                                  sync_every_scan=False)
+    return loops, corridor
+
+
+def phase_loop_deferred0(dev, classics):
+    """force_deferred at lag 0 against two classic replays in this
+    process (``classics``): equal counts, and the deferred replay's gap
+    to the nearer classic one within the classics' own gap plus
+    DEFERRED0_SLACK_M."""
+    from pgslam_tpu_torch import replays
+    runs = [*classics, replays.run_replay("loop", device=dev,
+                                          force_deferred=True)]
+    between = replays.max_pose_gap(runs[0][0], runs[1][0])
+    gap = min(replays.max_pose_gap(runs[2][0], r[0]) for r in runs[:2])
+    counts = [(r[2]["n_keyframes"], r[2]["n_loops"]) for r in runs]
+    line("replay_loop_deferred0", classic_vs_classic_m=between,
+         deferred0_vs_classic_m=gap, bit_equal=bool(
+             np.array_equal(runs[2][0], runs[0][0])),
+         counts=",".join(f"{k}/{n}" for k, n in counts))
+    if not (gap <= between + DEFERRED0_SLACK_M
+            and len(set(counts)) == 1):
+        raise AssertionError(f"replay_loop_deferred0: gap {gap} against "
+                             f"{between}, counts {counts}")
+
+
+def phase_loop_stream4(dev):
+    """The loop at micro_batch 4 (K2 at B = 4 on the card) held to the
+    JAX package's streaming envelopes against truth; its gap to the JAX
+    package's CPU run (golden_replay_stream4.npz) is printed."""
+    from pgslam_tpu_torch import replays
+    per_scan, _, stats = replays.run_replay(
+        "loop_stream4", device=dev, sync=_sync, sync_every_scan=False)
+    _, _, truth = replays.loop_sequence_golden()
+    t = np.stack(truth)
+    gold_te = _truth_errs(replays.fixture("loop")["per_scan_poses"],
+                          truth).max()
+    te = max(np.linalg.norm(per_scan[i][:3, 3]
+                            - t[max(0, i - STREAM_BATCH):i + 1, :3, 3],
+                            axis=1).min() for i in range(len(per_scan) - 1))
+    final = float(np.linalg.norm(per_scan[-1][:3, 3] - t[-1][:3, 3]))
+    fix = replays.fixture("loop_stream4")
+    gap = replays.max_pose_gap(per_scan, fix["per_scan_poses"])
+    limit = max(STREAM_TRUTH_FLOOR_M, STREAM_TRUTH_FACTOR * gold_te)
+    ms = _ms_per_scan(per_scan, stats)
+    line("replay_loop_stream4", scans=len(per_scan),
+         **_counts_line(stats, fix), truth_err_m=round(float(te), 5),
+         truth_limit_m=round(float(limit), 5), final_truth_err_m=round(
+             final, 5),
+         gap_to_jax_cpu_m=round(gap, 5), ms_per_scan=round(ms, 3))
+    if not (np.isfinite(per_scan).all() and stats["n_loops"] >= 1
+            and te < limit and final < STREAM_FINAL_TRUTH_M
+            and gap <= POSE_TOL_M
+            and stats["n_keyframes"] == int(fix["n_keyframes"])
+            and stats["n_loops"] == int(fix["n_loop_edges"])):
+        raise AssertionError(f"replay_loop_stream4: truth err {te} "
+                             f"(limit {limit}), final {final}, gap to the "
+                             f"JAX run {gap}, {stats}")
+    return ms
+
+
+def phase_corridor_lag2(dev, truth, lag0, ms_synced):
+    """BASELINE config 4's live loop: the 64k corridor at sync_lag 2 with
+    deferred verification, its flushed final pose within POSE_TOL_M of
+    golden_replay_64k.npz's last and each scan's error to the lag-shifted
+    truth within the lag-2 envelope; ms per scan beside the lag-0
+    replay's (``lag0``, a :func:`classic_baselines` run), both
+    synchronized once after the flush (and the lag-0 replay synchronized
+    per scan, ``ms_synced``)."""
+    from pgslam_tpu_torch import replays
+    per_scan, _, stats = replays.run_replay(
+        "corridor_64k_lag2", device=dev, sync=_sync, sync_every_scan=False)
+    gold = replays.fixture("corridor_64k")["per_scan_poses"]
+    final = float(np.linalg.norm(per_scan[-1][:3, 3] - gold[-1][:3, 3]))
+    te = _truth_errs(per_scan, truth, lag=LIVE_LAG).max()
+    limit = max(LAG2_TRUTH_FLOOR_M,
+                LAG2_TRUTH_FACTOR * _truth_errs(gold, truth).max())
+    ms0, ms2 = _ms_per_scan(lag0[0], lag0[2]), _ms_per_scan(per_scan, stats)
+    line("replay_corridor_64k_lag2", scans=len(per_scan),
+         keyframes=stats["n_keyframes"], loop_edges=stats["n_loops"],
+         final_gap_m=round(final, 5), truth_err_m=round(float(te), 5),
+         truth_limit_m=round(float(limit), 5),
+         ms_per_scan_lag2=round(ms2, 3), ms_per_scan_lag0=round(ms0, 3),
+         ms_per_scan_lag0_synced_per_scan=round(ms_synced, 3))
+    if not (np.isfinite(per_scan).all() and final < POSE_TOL_M
+            and te < limit):
+        raise AssertionError(f"replay_corridor_64k_lag2: final gap {final}, "
+                             f"truth err {te} (limit {limit})")
+    return ms0, ms2
+
+
+def phase_mt_loop(dev):
+    """PoseGraphSlamMT on the golden loop: lockstep (idle after every
+    scan) within POSE_TOL_M of golden_replay.npz at +-1 scan, then
+    free-running (idle once at the end) with its final pose within
+    POSE_TOL_M of the fixture's last."""
+    from pgslam_tpu_torch import replays
+    gold = replays.fixture("loop")
+    per_scan, _, stats = replays.run_replay_mt("loop", device=dev, sync=_sync)
+    gap = replays.max_pose_gap(per_scan, gold["per_scan_poses"], window=1)
+    free, _, fstats = replays.run_replay_mt("loop", device=dev,
+                                            lockstep=False, sync=_sync)
+    final = float(np.linalg.norm(free[-1][:3, 3]
+                                 - gold["per_scan_poses"][-1][:3, 3]))
+    ms = _ms_per_scan(free, fstats)
+    line("mt_loop", lockstep_max_gap_m=round(gap, 5),
+         lockstep_keyframes=stats["n_keyframes"],
+         lockstep_loop_edges=stats["n_loops"], free_final_gap_m=round(
+             final, 5), free_keyframes=fstats["n_keyframes"],
+         free_loop_edges=fstats["n_loops"], free_ms_per_scan=round(ms, 3),
+         lockstep_ms_per_scan=round(_ms_per_scan(per_scan, stats), 3))
+    if not (gap < POSE_TOL_M and final < POSE_TOL_M
+            and stats["n_loops"] == int(gold["n_loop_edges"])):
+        raise AssertionError(f"mt_loop: lockstep gap {gap}, free final "
+                             f"{final}, {stats}")
+    return ms
+
+
 def main() -> int:
     try:
         import torch
@@ -1650,6 +1889,7 @@ def main() -> int:
     k1_err, k1_times = phase_k1(dev, scans)
     (k2_err, k2_ms, k2_pms, k2_bnd, k2_lay, k2_dms), k2_aa_err = phase_k2(
         dev, seq)
+    k2s = phase_k2_stream(dev)
     hcfg, refs, packets, offsets = headline_setup(dev)
     k2h_err, k2h_ms, k2h_pms, k2h_bnd, k2h_lay, k2h_dms = phase_k2_headline(
         dev, hcfg, refs, packets, offsets)
@@ -1693,7 +1933,7 @@ def main() -> int:
                                  "which phase k4 neither checks nor times")
 
     reset()
-    phase_replay(dev, "corridor_64k", keyframes=4, loops=0)
+    _, corridor_ms = phase_replay(dev, "corridor_64k", keyframes=4, loops=0)
     if knn.launches == 0:
         raise AssertionError("corridor_64k replay never launched K1")
     phase_replay(dev, "loop", keyframes=20, loops=1)
@@ -1732,11 +1972,30 @@ def main() -> int:
                              f"{fleet}, K2 batch sizes {fleet_batches})")
     phase_fleet_split(dev, seq5)
     phase_fleet_golden(dev)
+
+    classic_loops, corridor_lag0 = classic_baselines(dev)
+    reset()
+    lag2_ms = phase_loop_lag2(dev)
+    phase_loop_deferred0(dev, classic_loops)
+    stream_ms = phase_loop_stream4(dev)
+    corridor_lag_ms = phase_corridor_lag2(dev, seq[2], corridor_lag0,
+                                          corridor_ms)
+    mt_ms = phase_mt_loop(dev)
+    deferred = counts()
+    top_shapes("deferred")
+    deferred_batches = dict(fused_icp_register.batch_sizes)
+    if min(deferred[:3]) == 0 or deferred_batches.get(STREAM_BATCH, 0) == 0:
+        raise AssertionError(f"a kernel of the deferred path never ran "
+                             f"(K1-K4 {deferred}, K2 batch sizes "
+                             f"{deferred_batches})")
     line("launches", per_scan=",".join(map(str, per_scan)),
          pgo=",".join(map(str, pgo_path)), batched=",".join(map(str, batched)),
          fleet=",".join(map(str, fleet)),
+         deferred=",".join(map(str, deferred)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
+         deferred_k2_batch_sizes=",".join(
+             f"{b}x{n}" for b, n in sorted(deferred_batches.items())),
          order="k1,k2,k3,k4",
          **{f"{p}_k1_shapes": ",".join(f"{q}x{r}x{k}:{c}"
                                        for (q, r, k), c in top) or "none"
@@ -1749,7 +2008,7 @@ def main() -> int:
             for p, (_, mean) in k4_shapes.items()})
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
-             "fleet": fleet}
+             "fleet": fleet, "deferred": deferred}
     k1_main = k1_times["2048x8192_k1"]
     k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
     k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
@@ -1768,7 +2027,7 @@ def main() -> int:
                                      for (q, r, k), c in top]
                                  for p, top in k1_shapes.items()}}),
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
-         max(k2h_err, k2_err, k2_aa_err), k2h_ms, k2h_pms, k2h_bnd,
+         max(k2h_err, k2_err, k2_aa_err, k2s[0]), k2h_ms, k2h_pms, k2h_bnd,
          {"shape": "128 x 1024 vs 8192, batched_icp_config",
           "layout": layout_name(k2h_lay), "device_ms": k2h_dms,
           "verification_b1_layout": layout_name(k2_lay),
@@ -1777,7 +2036,17 @@ def main() -> int:
           "anderson_max_abs_err": k2_aa_err,
           "verification_b1_ms": k2_ms, "verification_b1_plain_ms": k2_pms,
           "verification_b1_bound_ms": k2_bnd[0],
-          "batched_ms_per_batch": batch_ms, "fleet_ms_per_step": fleet_ms}),
+          "batched_ms_per_batch": batch_ms, "fleet_ms_per_step": fleet_ms,
+          "stream_b4_shape": "4 x 512 vs 1536, the loop's point-to-point",
+          "stream_b4_layout": layout_name(k2s[4]),
+          "stream_b4_max_abs_err": k2s[0], "stream_b4_ms": k2s[1],
+          "stream_b4_plain_ms": k2s[2], "stream_b4_bound_ms": k2s[3][0],
+          "stream_b4_device_ms": k2s[5],
+          "deferred_ms_per_scan": {
+              "loop_lag2": lag2_ms, "loop_stream4": stream_ms,
+              "loop_mt_free_running": mt_ms,
+              "corridor_64k_lag0": corridor_lag_ms[0],
+              "corridor_64k_lag2": corridor_lag_ms[1]}}),
         ("K3 lm", "lm.cu", "pgslam_tpu/optim/lm_pallas.py:1142",
          k3_err, k3_ms, k3_pms, k3_bnd,
          {"shape": "500 poses + 500 edges, default PGOConfig",

@@ -9,6 +9,12 @@ version beside it that runs on CPU tensors.
 
     slam = PoseGraphSlam(config)      # on the GPU; device="cpu" for the CPU
     slam.add_data(timestamp, frame_id, T_world_robot, T_robot_sensor, cloud)
+    slam.flush()                      # sync_lag / micro_batch: commit all
+
+    with PoseGraphSlamMT(config) as mt:   # three worker threads
+        mt.add_data(timestamp, frame_id, T_world_robot, T_robot_sensor,
+                    cloud)
+        mt.wait_idle()
 
     fleet = MultiAgentSlam(config, n_agents=16)   # one shared pose graph
     fleet.add_data_batch(timestamp, frame_id, T_world_robots, T_robot_sensor,
@@ -33,7 +39,7 @@ from .ops.icp import ICPConfig, ICPEngine, ICPResult  # noqa: E402,F401
 
 __all__ = ["se3", "metrics", "Cloud", "make_cloud", "transform_cloud",
            "ICPConfig", "ICPEngine", "ICPResult", "PoseGraphSlam",
-           "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals",
+           "PoseGraphSlamMT", "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals",
            "MultiAgentSlam", "batched_register"]
 
 
@@ -41,6 +47,9 @@ def __getattr__(name):
     if name in ("PoseGraphSlam", "SlamConfig"):
         from . import slam
         return getattr(slam, name)
+    if name == "PoseGraphSlamMT":
+        from .pipeline import PoseGraphSlamMT
+        return PoseGraphSlamMT
     if name in ("PGOConfig", "optimize_pose_graph", "pose_marginals"):
         from .optim import pgo
         return getattr(pgo, name)

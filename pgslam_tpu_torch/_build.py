@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -129,6 +130,20 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return handle
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, **tallies) -> None:
+    """Count one launch of ``wrapper``'s kernel: one more in
+    ``wrapper.launches`` and in ``getattr(wrapper, name)[key]`` for each
+    ``name=key``. Under one lock: the threaded pipeline's workers launch
+    from their own threads, and ``+=`` is not atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        for name, key in tallies.items():
+            getattr(wrapper, name)[key] += 1
 
 
 def check(err: int, name: str) -> None:

@@ -192,6 +192,14 @@ class MapManager:
         for localizer in self._localizers:
             localizer.update_from_graph()
 
+    def drain_loop_closer(self) -> None:
+        """Commit the loop closer's deferred verifications
+        (``deferred_verification``); the localizer calls it behind each
+        scan's dispatch and at its flush."""
+        lc = self._loop_closer
+        if lc is not None and getattr(lc, "_deferred", None):
+            lc.drain_deferred()
+
     def write_graphviz(self, path: str) -> None:
         g = self.graph
         lines = ["graph G {"]

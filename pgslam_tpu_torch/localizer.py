@@ -1,16 +1,27 @@
 """Localizer: input filtering, scan-to-local-map ICP, keyframe spawning
-and local-map composition management. Counterpart of the classic per-scan
-path of :mod:`pgslam_tpu.localizer` (``sync_lag=0``, ``micro_batch=0``,
-no forced deferral): the same decision tree, the same overlap-probe
-cache, and the same fp64 host re-anchoring. The fleet
-(:class:`~pgslam_tpu_torch.parallel.multi_agent.MultiAgentSlam`) drives
-the split entry points instead: :meth:`Localizer.prepare_scan`,
+and local-map composition management. Counterpart of
+:mod:`pgslam_tpu.localizer`: the same decision tree, the same overlap-probe
+cache, the same fp64 host re-anchoring, and its three scan paths:
+
+* classic (``sync_lag=0``): each scan's result, with the overlap probe
+  riding in it, is packed into one vector, fetched once and committed
+  before the next scan;
+* deferred (``sync_lag > 0``, or ``force_deferred`` at any lag): a scan
+  is dispatched at once with an odometry-extrapolated guess and
+  committed ``sync_lag`` scans later;
+* streaming (``micro_batch > 1``): scans are buffered and ``micro_batch``
+  of them register against the one local map in one batch (one K2
+  launch on the card), then commit as deferred scans.
+
+The fleet (:class:`~pgslam_tpu_torch.parallel.multi_agent.MultiAgentSlam`)
+drives the split entry points instead: :meth:`Localizer.prepare_scan`,
 :meth:`Localizer.begin_finish`, :meth:`Localizer.decide_composition`,
 ``apply_composition(build=False)`` and the deferred graph resync.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 from typing import Optional, Tuple
@@ -18,14 +29,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .cloud import Cloud, dequantize_cloud, transform_cloud
+from .cloud import Cloud, dequantize_cloud, stack_clouds, transform_cloud
 from .devices import resolve_device
 from .graph.pose_graph import MapManager
 from .graph.shortest_path import dijkstra
 from .localmap import Composition, LocalMap, build_cloud, stack_compositions
 from .ops import filters as F
-from .ops.icp import (ICPConfig, ICPEngine, ICPResult, compute_overlap,
-                      icp_core, to_host)
+from .ops.icp import (HostFetch, ICPConfig, ICPEngine, ICPResult,
+                      compute_overlap, fetch_async, icp_core, pack_result,
+                      unpack_result)
+from .parallel.batched import batched_register
 
 log = logging.getLogger("pgslam_tpu_torch.localizer")
 
@@ -56,8 +69,10 @@ def _rigid_inverse(T: np.ndarray) -> np.ndarray:
 @dataclasses.dataclass(frozen=True)
 class LocalizerConfig:
     """Same fields and defaults as ``pgslam_tpu.localizer.LocalizerConfig``.
-    ``sync_lag``, ``force_deferred`` and ``micro_batch`` select the
-    deferred and streaming paths, which are not ported yet."""
+    ``sync_lag`` k > 0 commits each scan k scans after its dispatch;
+    ``force_deferred`` takes the deferred path at any lag (at lag 0 it
+    gives the classic path's bits); ``micro_batch`` B > 1 registers B
+    buffered scans in one batch (0 and 1 are the classic path)."""
     local_map_size: int = 3
     overlap_threshold: float = 0.8
     minimal_overlap: float = 0.5
@@ -111,15 +126,53 @@ def probe_overlap_from_batched(readings, worlds, T_world_robots,
                         in zip(readings, worlds, T_world_robots)])
 
 
+def prepare_register_stream(chain, capacity: int, cfg: ICPConfig, clouds,
+                            T_robot_sensors, reference: Cloud,
+                            T0s: torch.Tensor):
+    """The streaming path's batch (``_prepare_register_stream``): each
+    scan's input preparation and reading filters, then one
+    :func:`batched_register` of all B readings against B copies of the
+    one local map (one K2 launch on the card; the kernel takes contiguous
+    tensors, so the copies are materialized). Returns the prepared
+    clouds, the readings and the packed results ``[B, 59]``."""
+    prepped, readings = prepare_input_batched(chain, capacity, clouds,
+                                              T_robot_sensors,
+                                              cfg.reading_filters)
+    B = len(prepped)
+    refs = reference.map(lambda a: a[None].expand(B, *a.shape).contiguous())
+    result = batched_register(stack_clouds(readings), refs, T0s, cfg)
+    return prepped, readings, pack_result(result)
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """A dispatched scan whose result is not committed yet."""
+    fetch: HostFetch           # its packed result on the way to the host
+    row: Optional[int]         # its row in a streamed batch's fetch
+    cloud: Cloud               # prepared input cloud
+    reading: Cloud             # filtered reading
+    # The reference keyframe result.T is relative to. A stale commit
+    # composes with this vertex's pose at commit time: with the pose at
+    # dispatch an optimizer writeback landing in between is lost (2.4x
+    # the classic path's drift, pgslam_tpu/localizer.py:427-437).
+    refkf_vertex: int
+    probe_comp: Optional[Composition]
+    odom_pose: np.ndarray      # the scan's odometry world pose
+    comp_items: Tuple[int, ...]  # composition registered against
+    # The reference keyframe's optimized pose at dispatch: a commit that
+    # finds it, the vertex and the composition unchanged is fresh and
+    # takes the classic pose composition.
+    refkf_pose_at_dispatch: np.ndarray
+
+    def result(self) -> Tuple[ICPResult, Optional[float]]:
+        vec = self.fetch.get()
+        return unpack_result(vec if self.row is None else vec[self.row])
+
+
 class Localizer:
 
     def __init__(self, map_manager: MapManager,
                  config: LocalizerConfig = LocalizerConfig(), device=None):
-        if config.sync_lag > 0 or config.force_deferred \
-                or config.micro_batch > 1:
-            raise NotImplementedError(
-                "the deferred (sync_lag / force_deferred) and streaming "
-                "(micro_batch) localizer paths are not ported yet")
         self.mm = map_manager
         self.config = config
         self.device = resolve_device(device)
@@ -140,6 +193,12 @@ class Localizer:
         # at its next step.
         self.defer_graph_resync = False
         self._needs_resync = False
+        # Dispatched scans not committed yet, oldest first; the odometry
+        # pose of the last committed scan (the base of the extrapolated
+        # guesses across the gap); the streaming path's buffered scans.
+        self._inflight: "collections.deque[_Inflight]" = collections.deque()
+        self._committed_odom = np.eye(4, dtype=np.float32)
+        self._microbuf: list = []
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -155,34 +214,203 @@ class Localizer:
     def process_data(self, input_T_world_robot: np.ndarray,
                      input_T_robot_sensor: np.ndarray,
                      input_cloud: Cloud) -> None:
-        prep = self.prepare_scan(input_T_world_robot, input_T_robot_sensor,
-                                 input_cloud)
-        if prep is None:
+        odom = np.asarray(input_T_world_robot, np.float32)
+        T_rs = np.asarray(input_T_robot_sensor, np.float32)
+        if not self.local_map.has_cloud():
+            # The first cloud: prepare_scan bootstraps the map.
+            self.prepare_scan(odom, T_rs, input_cloud)
+            self._committed_odom = odom
             return
-        reading, input_T_refkf_robot = prep
-        # The neighbour probe's candidate is chosen from the predicted
-        # pose and evaluated at the post-ICP pose, as the JAX package's
-        # one-dispatch scan path does.
+        if self.config.micro_batch > 1:
+            return self._process_data_stream(odom, T_rs, input_cloud)
+        deferred = self.config.sync_lag > 0 or self.config.force_deferred
+        log.info("[Localizer] Processing cloud #%d%s", self.count,
+                 " (deferred)" if deferred else "")
+        self.count += 1
+        if deferred and self._inflight:
+            T0, T_world_refkf, T_pred = self._extrapolated_guess(odom)
+        else:
+            # Fresh: the classic guess and probe pose, the very float
+            # operations of prepare_scan, so that the deferred path at
+            # lag 0 gives the classic path's bits.
+            T0 = self._odometry_guess(odom)
+            T_world_refkf, T_pred = self._probe_pose(T0)
+        inflight = self._dispatch(odom, T_rs, input_cloud, T0,
+                                  T_world_refkf, T_pred)
+        self.last_input_T_world_robot = odom
+        # Deferred loop-closure verifications of an earlier spawn commit
+        # here, behind this scan's dispatch.
+        self.mm.drain_loop_closer()
+        if not deferred:
+            self._commit(inflight, fresh=True)
+            return
+        self._inflight.append(inflight)
+        while len(self._inflight) > self.config.sync_lag:
+            self._commit(self._inflight.popleft())
+
+    def _odometry_guess(self, input_T_world_robot) -> np.ndarray:
+        """The classic initial guess relative to the reference keyframe:
+        the odometry increment since the last scan (fp64) after the
+        current relative pose."""
+        input_dT_robot = (
+            np.linalg.inv(np.asarray(self.last_input_T_world_robot,
+                                     np.float64))
+            @ np.asarray(input_T_world_robot, np.float64)).astype(np.float32)
+        return self.T_refkf_robot @ input_dT_robot
+
+    def _probe_pose(self, T0: np.ndarray):
+        """(reference keyframe world pose, predicted world pose) in fp32:
+        the overlap probe's candidate is chosen at the predicted pose and
+        evaluated at the post-ICP one, as the JAX package's one-dispatch
+        scan path does."""
         T_world_refkf = np.asarray(
             self.local_map.reference_keyframe().optimized_T_world_kf,
             np.float32)
-        probe_comp = self.neighbor_probe_request(
-            T_world_robot=T_world_refkf @ input_T_refkf_robot)
+        return T_world_refkf, T_world_refkf @ T0
 
+    def _extrapolated_guess(self, input_T_world_robot):
+        """With scans in flight: the last committed world pose after the
+        odometry increment since the last committed scan (the in-flight
+        scans' ICP corrections are what deferral gives up). Returns (T0,
+        reference keyframe pose, predicted pose)."""
+        T_pred = (np.asarray(self.T_world_robot, np.float64)
+                  @ np.linalg.inv(np.asarray(self._committed_odom,
+                                             np.float64))
+                  @ np.asarray(input_T_world_robot, np.float64))
+        T_world_refkf = np.asarray(
+            self.local_map.reference_keyframe().optimized_T_world_kf,
+            np.float64)
+        T0 = _orthonormalize((_rigid_inverse(T_world_refkf) @ T_pred)
+                             .astype(np.float32))
+        return (T0, T_world_refkf.astype(np.float32),
+                T_pred.astype(np.float32))
+
+    def _dispatch(self, odom, T_rs, input_cloud: Cloud, T0, T_world_refkf,
+                  T_pred) -> _Inflight:
+        """Input preparation, the registration from ``T0`` and the
+        neighbour probe at the post-ICP pose; the packed result's copy to
+        the host is started, nothing waits for it."""
+        cloud = prepare_input(self.config.input_filters,
+                              self.config.keyframe_cloud_capacity,
+                              input_cloud, self._tensor(T_rs))
+        reading = self.icp_engine.prepare_reading(cloud)
+        probe_comp = self.neighbor_probe_request(T_world_robot=T_pred)
         result = icp_core(reading, self.icp_engine.reference,
-                          self._tensor(input_T_refkf_robot),
-                          self.icp_engine.config)
+                          self._tensor(T0), self.icp_engine.config)
         ov = None
         if probe_comp is not None:
-            probe_map = self._cached_probe_map(probe_comp)
-            T_world_robot = self._tensor(T_world_refkf) @ result.T
-            ov = float(compute_overlap(reading, probe_map, T_world_robot,
-                                       self.icp_engine.config))
-        result = self.begin_finish(to_host(result))
-        self.decide_composition(result, probe_comp, ov)
+            ov = compute_overlap(reading, self._cached_probe_map(probe_comp),
+                                 self._tensor(T_world_refkf) @ result.T,
+                                 self.icp_engine.config)
+        return self._record(fetch_async(pack_result(result, ov)), None,
+                            cloud, reading, probe_comp, odom)
+
+    def _record(self, fetch, row, cloud, reading, probe_comp,
+                odom) -> _Inflight:
+        return _Inflight(
+            fetch=fetch, row=row, cloud=cloud, reading=reading,
+            refkf_vertex=self.local_map.reference_vertex(),
+            probe_comp=probe_comp, odom_pose=odom,
+            comp_items=tuple(self.local_map.get_composition().as_list()),
+            refkf_pose_at_dispatch=np.array(
+                self.local_map.reference_keyframe().optimized_T_world_kf,
+                np.float32, copy=True))
+
+    def _commit(self, inflight: _Inflight, fresh: Optional[bool] = None
+                ) -> None:
+        """Consume one dispatched scan: its packed result, the pose state
+        and the decision tree. ``fresh`` (nothing landed since dispatch)
+        is found from the record unless the caller knows it."""
+        result, ov = inflight.result()
+        comp_unchanged = inflight.comp_items == tuple(
+            self.local_map.get_composition().as_list())
+        if fresh is None:
+            fresh = (comp_unchanged
+                     and inflight.refkf_vertex
+                     == self.local_map.reference_vertex()
+                     and np.array_equal(
+                         inflight.refkf_pose_at_dispatch,
+                         np.asarray(self.local_map.reference_keyframe()
+                                    .optimized_T_world_kf, np.float32)))
+        if fresh:
+            self.begin_finish(result)
+        else:
+            # result.T is relative to the reference keyframe at dispatch:
+            # compose with that vertex's pose now, then re-anchor on the
+            # current reference keyframe.
+            self.last_result = result
+            T_ref_now = np.asarray(
+                self.mm.get_graph().optimized_poses[inflight.refkf_vertex],
+                np.float64)
+            self.T_world_robot = _orthonormalize(
+                (T_ref_now @ np.asarray(result.T, np.float64))
+                .astype(np.float32))
+            self.update_refkf_robot_pose()
+        self.input_cloud = inflight.cloud
+        self._last_reading = inflight.reading
+        self._committed_odom = inflight.odom_pose
+        if not comp_unchanged:
+            # The scan's overlap was measured against the composition
+            # before an earlier commit changed it: acting on it would
+            # spawn keyframes one scan apart. The scan only localizes.
+            log.info("[Localizer] deferred commit against a stale "
+                     "composition: decision muted")
+            return
+        self.decide_composition(result, inflight.probe_comp, ov)
         self.apply_composition()
-        self.last_input_T_world_robot = np.asarray(input_T_world_robot,
-                                                   np.float32)
+
+    # -- streaming path (micro_batch > 1) ------------------------------------
+
+    def _process_data_stream(self, odom, T_rs, input_cloud: Cloud) -> None:
+        """Buffer the scan; at ``micro_batch`` scans register them in one
+        batch and hand them to the deferred commits (a commit lags up to
+        ``micro_batch + sync_lag`` scans)."""
+        log.info("[Localizer] Buffering cloud #%d (stream)", self.count)
+        self._microbuf.append((odom, T_rs, input_cloud))
+        self.count += 1
+        self.last_input_T_world_robot = odom
+        if len(self._microbuf) >= self.config.micro_batch:
+            self._flush_microbatch()
+
+    def _flush_microbatch(self) -> None:
+        buf, self._microbuf = self._microbuf, []
+        if not buf:
+            return
+        n = len(buf)
+        buf_p = buf + [buf[-1]] * (self.config.micro_batch - n)
+        # Every scan's guess extrapolates the odometry from the last
+        # committed pose against the one reference keyframe snapshot.
+        Tinv = _rigid_inverse(
+            self.local_map.reference_keyframe().optimized_T_world_kf)
+        base = (np.asarray(self.T_world_robot, np.float64)
+                @ np.linalg.inv(np.asarray(self._committed_odom,
+                                           np.float64)))
+        T0s = np.stack([_orthonormalize(
+            (Tinv @ base @ np.asarray(o, np.float64)).astype(np.float32))
+            for o, _, _ in buf_p])
+        clouds, readings, packed = prepare_register_stream(
+            self.config.input_filters, self.config.keyframe_cloud_capacity,
+            self.icp_engine.config, [c for _, _, c in buf_p],
+            [self._tensor(t) for _, t, _ in buf_p],
+            self.icp_engine.reference, self._tensor(T0s))
+        fetch = fetch_async(packed)
+        # The speculative neighbour probe is skipped in this mode.
+        for j in range(n):
+            self._inflight.append(self._record(fetch, j, clouds[j],
+                                               readings[j], None, buf[j][0]))
+        self.mm.drain_loop_closer()
+        while len(self._inflight) > self.config.sync_lag:
+            self._commit(self._inflight.popleft())
+
+    def flush(self) -> None:
+        """Commit every buffered and in-flight scan and every deferred
+        loop-closure verification. The facade's accessors call it."""
+        if self._microbuf:
+            self._flush_microbatch()
+        while self._inflight:
+            self._commit(self._inflight.popleft())
+            self.mm.drain_loop_closer()
+        self.mm.drain_loop_closer()
 
     def prepare_scan(self, input_T_world_robot, input_T_robot_sensor,
                      input_cloud: Cloud, prepared: Optional[Cloud] = None,
@@ -204,12 +432,7 @@ class Localizer:
             self.last_input_T_world_robot = np.asarray(input_T_world_robot,
                                                        np.float32)
             return None
-        # Odometry-predicted initial guess (host, fp64 increment).
-        input_dT_robot = (
-            np.linalg.inv(np.asarray(self.last_input_T_world_robot,
-                                     np.float64))
-            @ np.asarray(input_T_world_robot, np.float64)).astype(np.float32)
-        input_T_refkf_robot = self.T_refkf_robot @ input_dT_robot
+        input_T_refkf_robot = self._odometry_guess(input_T_world_robot)
         if reading is None:
             reading = self.icp_engine.prepare_reading(cloud)
         self._last_reading = reading

@@ -1,9 +1,12 @@
 """LoopCloser: per new keyframe, find vertices that are geometrically close
 but topologically far, assemble a candidate local map by Dijkstra on the
 loop-edge-free graph, verify with a second ICP and accept only a
-converged, overlapping, low-residual registration. Counterpart of the
-synchronous path of :mod:`pgslam_tpu.loopcloser`; the verification ICP
-runs on K2 when the config is eligible.
+converged, overlapping, low-residual registration. Counterpart of
+:mod:`pgslam_tpu.loopcloser`; the verification ICP runs on K2 when the
+config is eligible. A verification is dispatched with its result and
+fresh residual packed into one vector whose copy to the host starts at
+once; the synchronous path commits it right away, the deferred one
+(``deferred_verification``) at the next scan's drain.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from .graph.shortest_path import candidate_composition, dijkstra
 from .localmap import Composition, LocalMap, batch_rebuild
 from .ops import filters as F
 from .ops.icp import (ICPConfig, ICPResult, compute_residual, eps_dead_zone,
-                      eps_margin, icp_core, reference_chain, to_host)
+                      eps_margin, fetch_async, icp_core, pack_result,
+                      reference_chain, to_host, unpack_result)
 from .ops.icp_fused import fused_eligible, fused_icp_register
 from .utils import counters
 
@@ -32,7 +36,9 @@ log = logging.getLogger("pgslam_tpu_torch.loopcloser")
 @dataclasses.dataclass(frozen=True)
 class LoopCloserConfig:
     """Same fields and defaults as ``pgslam_tpu.loopcloser.
-    LoopCloserConfig``; ``deferred_verification`` is not ported yet."""
+    LoopCloserConfig``. With ``deferred_verification`` a spawn's
+    verification is committed at the next scan's drain
+    (``MapManager.drain_loop_closer``) instead of inside the spawn."""
     topo_dist_threshold: float = 3.0
     geom_dist_threshold: float = 3.0
     overlap_threshold: float = 0.8
@@ -43,23 +49,23 @@ class LoopCloserConfig:
 
 
 def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
-           cfg: ICPConfig):
+           cfg: ICPConfig) -> torch.Tensor:
     """The verification stage: both filter chains, the registration (K2
-    when eligible), and the fresh residual at the result. Returns
-    (result, residual, prepared reference)."""
+    when eligible), and the fresh residual at the result. Returns the
+    result packed with the residual in its extra slot (``pack_result``),
+    on the clouds' device."""
     reading = F.apply_chain(cfg.reading_filters, reading)
     ref = F.apply_chain(reference_chain(cfg, ref_cloud), ref_cloud)
     if fused_eligible(cfg):
         lift = lambda c: c.map(lambda a: a[None])
         res = fused_icp_register(lift(reading), lift(ref), T0[None], cfg)
-        T = res.T[0]
-        result = to_host(res, index=0)
+        res = dataclasses.replace(res, **{
+            f.name: getattr(res, f.name)[0]
+            for f in dataclasses.fields(res)
+            if getattr(res, f.name) is not None})
     else:
         res = icp_core(reading, ref, T0, cfg)
-        T = res.T
-        result = to_host(res)
-    residual = float(compute_residual(reading, ref, T, cfg))
-    return result, residual, ref
+    return pack_result(res, compute_residual(reading, ref, res.T, cfg))
 
 
 def verify_batch(readings: Cloud, refs: Cloud, T0s: torch.Tensor,
@@ -84,9 +90,6 @@ class LoopCloser:
 
     def __init__(self, map_manager: MapManager, optimizer,
                  config: LoopCloserConfig = LoopCloserConfig(), device=None):
-        if config.deferred_verification:
-            raise NotImplementedError(
-                "deferred loop-closure verification is not ported yet")
         self._validate_verification_profile(config.icp)
         self.mm = map_manager
         self.optimizer = optimizer
@@ -108,6 +111,9 @@ class LoopCloser:
         self.queue_mode = False
         self.batch_pad_to = 0
         self._pending = []
+        # Dispatched verifications not committed yet, oldest first
+        # (deferred_verification).
+        self._deferred = []
 
     def _count(self, outcome: str) -> None:
         setattr(self, outcome, getattr(self, outcome) + 1)
@@ -117,7 +123,17 @@ class LoopCloser:
         if self.queue_mode:
             self._pending.append(int(v))
             return
+        if self.config.deferred_verification:
+            rec = self._dispatch_verification(int(v))
+            if rec is not None:
+                self._deferred.append(rec)
+            return
         self.process_vertex(int(v))
+
+    def drain_deferred(self) -> None:
+        """Commit every dispatched verification, in order."""
+        while self._deferred:
+            self._commit_verification(self._deferred.pop(0))
 
     def process_pending_batched(self) -> None:
         """Verify every queued vertex: the host candidate searches, one
@@ -196,32 +212,50 @@ class LoopCloser:
                 ).astype(np.float32)
 
     def _dispatch_verification(self, input_vertex: int):
-        """Candidate search and the verification; None when no candidate
-        exists."""
+        """Candidate search and the verification, whose packed result
+        starts on its way to the host; nothing waits for it. Returns the
+        record :meth:`_commit_verification` takes, or None when no
+        candidate exists."""
         self.input_vertex = input_vertex
         if not self.process_local_map_candidate():
             return None
         T0 = torch.as_tensor(self._verification_init(), device=self.device)
-        result, residual, _ = verify(self.input_cloud,
-                                     self.candidate_local_map.cloud(), T0,
-                                     self.config.icp)
+        packed = verify(self.input_cloud, self.candidate_local_map.cloud(),
+                        T0, self.config.icp)
         rec = {"vertex": input_vertex, "lm": self.candidate_local_map,
-               "result": result, "residual": residual}
+               "cloud": self.input_cloud,
+               "T_world_kf": self.input_T_world_kf,
+               "fetch": fetch_async(packed)}
+        # The record keeps the map; the next dispatch takes a fresh one
+        # (deferred mode can hold several records).
         self.candidate_local_map = LocalMap(
             self.config.candidate_local_map_size)
         return rec
 
     def _commit_verification(self, rec) -> None:
-        result = rec["result"]
+        """Fetch one verification, then acceptance and the optimizer."""
+        self.input_vertex = rec["vertex"]
+        self.input_cloud = rec["cloud"]
+        self.input_T_world_kf = rec["T_world_kf"]
+        self.candidate_local_map = rec["lm"]
+        result, residual = unpack_result(rec["fetch"].get())
         self.last_result = result
         self.T_refkf_kf = np.asarray(result.T)
         self._accept_or_reject(rec["vertex"], rec["lm"], result,
-                               rec["residual"])
+                               float("nan") if residual is None
+                               else residual)
 
     def _accept_or_reject(self, input_vertex: int, lm, result,
                           residual) -> None:
         ref_v = lm.reference_vertex()
-        if self.check_icp_result(result, residual=residual):
+        if self.mm.get_graph().has_edge(ref_v, input_vertex):
+            # Only a deferred commit meets this: another closure inserted
+            # the pair between dispatch and drain (the synchronous path
+            # searches again after every insertion).
+            self._count("rejected_duplicate")
+            log.info("[LoopCloser] Loop closure %d -> %d dropped: edge "
+                     "already exists", ref_v, input_vertex)
+        elif self.check_icp_result(result, residual=residual):
             self._count("accepted")
             log.info("[LoopCloser] Loop closure accepted: %d -> %d", ref_v,
                      input_vertex)

@@ -12,6 +12,7 @@ import dataclasses
 import logging
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import se3
@@ -104,6 +105,80 @@ def to_host(result: ICPResult, index=None) -> ICPResult:
                      residual=get(result.residual), cov=get(result.cov),
                      diverged=None if result.diverged is None
                      else get(result.diverged))
+
+
+PACKED_WIDTH = 59
+
+
+def pack_result(result: ICPResult, overlap=None) -> torch.Tensor:
+    """A result (and an optional second scalar, the overlap probe's or the
+    verification's residual) as one fp32 vector per batch entry, ``[...,
+    59]``: T (16), cov (36), iterations, converged, max_iter_reached,
+    overlap, residual, diverged, then the extra scalar. NaN marks an
+    absent ``diverged`` or extra slot. One vector is one device-to-host
+    copy (:func:`fetch_async`) instead of one per field."""
+    T = result.T
+    lead = T.shape[:-2]
+    col = lambda x: torch.as_tensor(x, device=T.device).to(
+        torch.float32).reshape(lead)
+    nan = torch.full(lead, float("nan"), dtype=torch.float32,
+                     device=T.device)
+    tail = torch.stack([col(result.iterations), col(result.converged),
+                        col(result.max_iter_reached), col(result.overlap),
+                        col(result.residual),
+                        nan if result.diverged is None
+                        else col(result.diverged),
+                        nan if overlap is None else col(overlap)], dim=-1)
+    return torch.cat([T.to(torch.float32).reshape(*lead, 16),
+                      result.cov.to(torch.float32).reshape(*lead, 36),
+                      tail], dim=-1)
+
+
+def unpack_result(vec) -> Tuple[ICPResult, Optional[float]]:
+    """The host inverse of :func:`pack_result` for one entry: a result
+    with numpy leaves (as :func:`to_host` gives) and the extra scalar, or
+    None where its slot is NaN."""
+    vec = np.asarray(vec)
+    div, extra = vec[57], vec[58]
+    result = ICPResult(
+        T=vec[:16].reshape(4, 4), iterations=np.int32(vec[52]),
+        converged=np.bool_(vec[53] != 0.0),
+        max_iter_reached=np.bool_(vec[54] != 0.0),
+        overlap=np.float32(vec[55]), residual=np.float32(vec[56]),
+        cov=vec[16:52].reshape(6, 6),
+        diverged=None if np.isnan(div) else np.bool_(div != 0.0))
+    return result, (None if np.isnan(extra) else float(extra))
+
+
+class HostFetch:
+    """A device-to-host copy in flight: on the card a non-blocking copy
+    into pinned host memory, ordered on the current stream and followed
+    by an event; :meth:`get` waits on that event and nothing else. On the
+    CPU a plain copy."""
+
+    def __init__(self, vec: torch.Tensor):
+        vec = vec.detach()
+        if vec.device.type == "cuda":
+            self._host = torch.empty(vec.shape, dtype=vec.dtype,
+                                     pin_memory=True)
+            self._host.copy_(vec, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(vec.device))
+            self._source = vec      # alive until the copy has run
+        else:
+            self._host = vec.clone()
+            self._event = self._source = None
+
+    def get(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+            self._event = self._source = None
+        return self._host.numpy()
+
+
+def fetch_async(vec: torch.Tensor) -> HostFetch:
+    """Start the copy of ``vec`` to the host (:class:`HostFetch`)."""
+    return HostFetch(vec)
 
 
 def match_clouds(points, mask, reference: Cloud, cfg: ICPConfig) -> Matches:

@@ -588,8 +588,7 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig,
         raise RuntimeError(f"K2: layout {layout} does not cover {NQ} "
                            "reading points in its shared memory")
     _build.check(err, "pgs_icp_fused")
-    fused_icp_register.launches += 1
-    fused_icp_register.batch_sizes[B] += 1
+    _build.count_launch(fused_icp_register, batch_sizes=B)
     fused_icp_register.layout = layout
     return out
 

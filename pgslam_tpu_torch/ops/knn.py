@@ -198,8 +198,7 @@ def knn(query, query_mask, reference, reference_mask, k: int = 1,
         reference_mask.data_ptr(), nr, k, layout.slices, layout.threads,
         d.data_ptr(), i.data_ptr(), _build.stream_of(query))
     _build.check(err, "pgs_knn")
-    knn.launches += 1
-    knn.shapes[(nq, nr, k)] += 1
+    _build.count_launch(knn, shapes=(nq, nr, k))
     knn.layout = layout
     return Matches(dists2=d, ids=i)
 

@@ -273,8 +273,7 @@ def _launch(plan: K4Plan, blocks, P_inv, damp_diag, b, prior_info,
         plan.scratch.data_ptr(), w["bar"], w["pub"], w["work"],
         out.data_ptr(), total.data_ptr(), _build.stream_of(b))
     _build.check(err, "pgs_pcg")
-    pcg_solve.launches += 1
-    pcg_solve.shapes[(V, E)] += 1
+    _build.count_launch(pcg_solve, shapes=(V, E))
     pcg_solve.layout = lay
     return out[:6 * V].view(V, 6), out[6 * V:6 * V + 1].view(torch.int32)[0]
 

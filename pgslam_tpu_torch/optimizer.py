@@ -68,6 +68,10 @@ class Optimizer:
         self.data_buffer: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
         self.last_stats = None
         self.runs = 0
+        # Vertices in the problem prepare_for_optimization built: the
+        # writeback covers these only (the MT optimizer solves unlocked
+        # while the localizer appends vertices).
+        self._nv_snapshot = None
         # The fleet queues constraints and optimizes once per step over
         # all of them (process_pending).
         self.queue_mode = False
@@ -92,7 +96,6 @@ class Optimizer:
     def process_data(self) -> None:
         log.info("[Optimizer] Building factor graph with %d new loop "
                  "closing factors", len(self.data_buffer))
-        nv = self.mm.get_graph().n_vertices
         args, rmask = self.prepare_for_optimization()
         new_poses, stats = optimize_pose_graph(
             *args, robust_emask=rmask, config=self.config.pgo)
@@ -102,13 +105,14 @@ class Optimizer:
                  self.last_stats["final_cost"],
                  int(self.last_stats["iterations"]))
         self.runs += 1
-        self.update_after_optimization(new_poses.cpu().numpy()[:nv])
+        self.update_after_optimization(new_poses.cpu().numpy())
 
     def prepare_for_optimization(self):
         """Padded problem: every graph edge plus the pending loop edges,
         the current optimized poses as initial values, and the anchor."""
         g = self.mm.get_graph()
         nv, ne = g.n_vertices, g.n_edges
+        self._nv_snapshot = nv
         pend = self.data_buffer
         n_pending = len(pend)
         arrays = pad_graph(
@@ -128,11 +132,14 @@ class Optimizer:
         return args + (self.mm.get_fixed_vertex(),), rmask
 
     def update_after_optimization(self, new_poses: np.ndarray) -> None:
-        """Write the poses back under one stamp, then insert the loop
+        """Write back the poses of the vertices the problem held under one
+        stamp (vertices appended since keep theirs), then insert the loop
         edges, then tell the localizer."""
         g = self.mm.get_graph()
         t_opt = self.mm.now()
         n = min(len(new_poses), g.n_vertices)
+        if self._nv_snapshot is not None:
+            n = min(n, self._nv_snapshot)
         self.mm.update_keyframe_transforms_bulk(new_poses[:n], t_opt)
         for (f, t, T, c) in self.data_buffer:
             self.mm.add_loop_closing_constraint(f, t, T, c)

@@ -1,12 +1,15 @@
 """Where a replay's or a large-graph optimize's time goes on the GPU.
 
-    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|pgo_1k|pgo_16k] [--trace DIR]
+    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|corridor_64k_lag2|loop_lag2|loop_stream4|pgo_1k|pgo_16k] [--trace DIR]
 
 Runs the replay (or one ``optimize_pose_graph`` of the pose-graph problem
 under ``solver="pcg_pallas"`` and the default ``PGOConfig``: the LM loop
 with K4) once to build and warm everything, then again under
-``torch.profiler`` (CPU and CUDA activities), synchronizing after every
-scan. Prints the card, the wall time per unit (scan, or LM iteration;
+``torch.profiler`` (CPU and CUDA activities). A classic replay is
+synchronized after every scan; a deferred or streaming one
+(``replays.VARIANTS``, e.g. BASELINE config 4's ``corridor_64k_lag2``)
+only once after its flush, since a synchronize per scan would undo what
+deferral buys. Prints the card, the wall time per unit (scan, or LM iteration;
 the profiler's own host overhead included), the device's busy time and
 idle share over the run, the device-side events (kernels, copies) per
 unit, and the device time by kernel, with the port's own kernels (K1-K4)
@@ -78,9 +81,10 @@ def _drive(name: str, dev):
     """Run a replay, or one optimize of a pose-graph problem; returns
     (unit, number of units, extra stats)."""
     from . import replays
-    if name in replays.REPLAYS:
+    if name in replays.REPLAYS or name in replays.VARIANTS:
         per_scan, _, stats = replays.run_replay(
-            name, device=dev, sync=torch.cuda.synchronize)
+            name, device=dev, sync=torch.cuda.synchronize,
+            sync_every_scan=name in replays.REPLAYS)
         return "scan", len(per_scan), {"keyframes": stats["n_keyframes"],
                                        "loops": stats["n_loops"]}
     from .optim.pgo import PGOConfig, optimize_pose_graph

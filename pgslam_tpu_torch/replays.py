@@ -1,4 +1,4 @@
-"""The two replays the port is held against, with their configurations.
+"""The replays the port is held against, with their configurations.
 
 Both reproduce, seed for seed, the runs that recorded the JAX package's
 single-threaded trajectories in ``tests/fixtures/``:
@@ -9,6 +9,12 @@ single-threaded trajectories in ``tests/fixtures/``:
 * ``corridor_64k``: 16 Velodyne-scale 65536-point scans down a corridor,
   1 m apart, with the production point-to-plane profile at a 2k/8k voxel
   working set; 4 keyframes (``golden_replay_64k.npz``).
+
+``VARIANTS`` run them on the deferred and streaming paths (the loop at
+``sync_lag=2`` with deferred verification and at ``micro_batch=4``, whose
+JAX runs ``scripts/make_torch_fixtures.py`` records, and the corridor at
+BASELINE config 4's ``sync_lag=2``); :func:`run_replay_mt` drives the
+threaded facade.
 """
 
 from __future__ import annotations
@@ -66,9 +72,11 @@ def corridor_64k_sequence(n_scans: int = 16):
     return scans, poses, poses
 
 
-def velodyne_config() -> SlamConfig:
-    """``examples/velodyne_slam.py::velodyne_config()`` (sync_lag=0),
-    field for field: the 64k-point point-to-plane profile."""
+def velodyne_config(sync_lag: int = 0) -> SlamConfig:
+    """``examples/velodyne_slam.py::velodyne_config(sync_lag)``, field for
+    field: the 64k-point point-to-plane profile; ``sync_lag`` > 0 (the
+    deployable live loop, BASELINE config 4 at 2) also defers the loop
+    closer's verification."""
     icp = ICPConfig(
         error="point_to_plane", matcher="pallas",
         pallas_precision="high",
@@ -84,12 +92,13 @@ def velodyne_config() -> SlamConfig:
     verify_icp = dataclasses.replace(icp, max_iterations=24)
     return SlamConfig(
         localizer=LocalizerConfig(icp=icp, keyframe_cloud_capacity=65536,
-                                  overlap_threshold=0.8, sync_lag=0),
+                                  overlap_threshold=0.8,
+                                  sync_lag=sync_lag),
         loop_closer=LoopCloserConfig(icp=verify_icp,
                                      topo_dist_threshold=30.0,
                                      geom_dist_threshold=10.0,
                                      overlap_threshold=0.6,
-                                     deferred_verification=False),
+                                     deferred_verification=sync_lag > 0),
         sensor_cloud_capacity=65536)
 
 
@@ -99,35 +108,129 @@ REPLAYS = {
                      "golden_replay_64k.npz"),
 }
 
+# Replays of the deferred and streaming paths: (replay, overrides of
+# run_replay, fixture recorded by scripts/make_torch_fixtures.py or None).
+VARIANTS = {
+    "loop_lag2": ("loop", {"sync_lag": 2, "deferred_verification": True},
+                  "golden_replay_lag2.npz"),
+    "loop_stream4": ("loop", {"micro_batch": 4}, "golden_replay_stream4.npz"),
+    "corridor_64k_lag2": ("corridor_64k", {"sync_lag": 2,
+                                           "deferred_verification": True},
+                          None),
+}
 
-def run_replay(name: str, device=None, sync=None, config=None):
-    """Drive :class:`PoseGraphSlam` over a replay. Returns (per-scan poses
-    ``[n, 4, 4]``, keyframe trajectory, stats). ``device`` None means the
-    GPU; ``config`` replaces the replay's own ``SlamConfig``. ``sync`` is
-    called after every scan so that the per-scan time covers the device's
-    work."""
-    make_seq, make_cfg, _ = REPLAYS[name]
-    scans, odom, _ = make_seq()
-    slam = PoseGraphSlam(config or make_cfg(), device=device)
+
+def with_overrides(config: SlamConfig, sync_lag=None, micro_batch=None,
+                   force_deferred=None,
+                   deferred_verification=None) -> SlamConfig:
+    """``config`` with the localizer's ``sync_lag``, ``micro_batch`` and
+    ``force_deferred`` and the loop closer's ``deferred_verification``
+    replaced where given."""
+    loc = {k: v for k, v in (("sync_lag", sync_lag),
+                             ("micro_batch", micro_batch),
+                             ("force_deferred", force_deferred))
+           if v is not None}
+    config = dataclasses.replace(
+        config, localizer=dataclasses.replace(config.localizer, **loc))
+    if deferred_verification is not None:
+        config = dataclasses.replace(config, loop_closer=dataclasses.replace(
+            config.loop_closer,
+            deferred_verification=deferred_verification))
+    return config
+
+
+def _variant(name: str, config, overrides):
+    """(replay name, config with the variant's and the caller's
+    overrides)."""
+    if name in VARIANTS:
+        name, extra, _ = VARIANTS[name]
+        overrides = {**extra, **overrides}
+    return name, with_overrides(config or REPLAYS[name][1](), **overrides)
+
+
+def _stats(slam, seconds, **extra) -> dict:
+    return {"n_keyframes": int(slam.get_graph().n_vertices),
+            "n_loops": slam.n_loop_edges(),
+            "opt_runs": slam.optimizer.runs, "seconds": seconds, **extra}
+
+
+def run_replay(name: str, device=None, sync=None, config=None,
+               sync_every_scan: bool = True, **overrides):
+    """Drive :class:`PoseGraphSlam` over a replay (a name of ``REPLAYS``
+    or ``VARIANTS``). Returns (per-scan poses ``[n, 4, 4]``, keyframe
+    trajectory, stats). ``device`` None means the GPU; ``config``
+    replaces the replay's own ``SlamConfig``; ``overrides`` are
+    :func:`with_overrides`'s. ``sync`` is called after every scan, so that
+    the per-scan time covers the device's work, or with
+    ``sync_every_scan=False`` once after the final flush: a deferred
+    replay synchronized per scan gives up what deferral buys. The pose
+    reported after a scan trails by the commit lag; the last one is
+    replaced by the flushed pose, as ``tests/golden_replay.py::_replay``
+    does. ``stats["seconds"]`` covers the scans, the flush and the final
+    ``sync``."""
+    name, config = _variant(name, config, overrides)
+    scans, odom, _ = REPLAYS[name][0]()
+    slam = PoseGraphSlam(config, device=device)
     T_rs = np.eye(4, dtype=np.float32)
     per_scan, times = [], []
+    t_start = time.perf_counter()
     for i, (scan, T_odom) in enumerate(zip(scans, odom)):
         t0 = time.perf_counter()
         slam.add_data(i, "world", T_odom, T_rs, scan)
-        if sync is not None:
+        if sync is not None and sync_every_scan:
             sync()
         times.append(time.perf_counter() - t0)
         per_scan.append(slam.localizer.T_world_robot.copy())
-    g = slam.get_graph()
-    stats = {"n_keyframes": int(g.n_vertices),
-             "n_loops": slam.n_loop_edges(),
-             "opt_runs": slam.optimizer.runs,
-             "scan_seconds": times}
-    return np.stack(per_scan), slam.trajectory(), stats
+    slam.flush()
+    if sync is not None:
+        sync()
+    seconds = time.perf_counter() - t_start
+    loc = config.localizer
+    if loc.sync_lag or loc.micro_batch > 1:
+        per_scan[-1] = slam.localizer.T_world_robot.copy()
+    return np.stack(per_scan), slam.trajectory(), _stats(
+        slam, seconds, scan_seconds=times)
+
+
+def run_replay_mt(name: str, device=None, lockstep: bool = True, sync=None,
+                  config=None, timeout: float = 600.0, **overrides):
+    """Drive :class:`~pgslam_tpu_torch.pipeline.PoseGraphSlamMT` over a
+    replay. ``lockstep`` waits for the pipeline to go idle after every
+    scan (the per-scan poses are then comparable with the single-threaded
+    replay's); otherwise the scans are queued free-running and the
+    pipeline is flushed once at the end, and the per-scan poses are
+    those of the last scan. ``sync`` is called once after the flush.
+    Returns what :func:`run_replay` does, ``stats["seconds"]`` from the
+    first scan queued to the idle, synchronized end."""
+    from .pipeline import PoseGraphSlamMT
+    name, config = _variant(name, config, overrides)
+    scans, odom, _ = REPLAYS[name][0]()
+    T_rs = np.eye(4, dtype=np.float32)
+    per_scan = []
+    with PoseGraphSlamMT(config, device=device) as slam:
+        t_start = time.perf_counter()
+        for i, (scan, T_odom) in enumerate(zip(scans, odom)):
+            slam.add_data(i, "world", T_odom, T_rs, scan)
+            if lockstep:
+                if not slam.wait_idle(timeout=timeout):
+                    raise TimeoutError(f"scan {i} not done in {timeout} s")
+                per_scan.append(slam.localizer.T_world_robot.copy())
+        slam.flush(timeout=timeout)
+        if sync is not None:
+            sync()
+        seconds = time.perf_counter() - t_start
+        if not lockstep:
+            per_scan = [slam.localizer.T_world_robot.copy()]
+        per_scan[-1] = slam.localizer.T_world_robot.copy()
+        stats = _stats(slam, seconds, n_scans=len(scans))
+        trajectory = slam.trajectory()
+    return np.stack(per_scan), trajectory, stats
 
 
 def fixture(name: str) -> dict:
-    data = np.load(os.path.join(FIXTURES, REPLAYS[name][2]))
+    """A committed fixture of a replay or a variant."""
+    file = VARIANTS[name][2] if name in VARIANTS else REPLAYS[name][2]
+    data = np.load(os.path.join(FIXTURES, file))
     return {k: data[k] for k in data.files}
 
 

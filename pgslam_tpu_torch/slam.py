@@ -1,7 +1,8 @@
 """PoseGraphSlam facade: builds MapManager -> Optimizer -> LoopCloser ->
 Localizer, wires the notifications, and forwards scans. Counterpart of
-:mod:`pgslam_tpu.slam` (single-threaded). Tensors live on ``device``
-(the GPU unless the caller passes ``device="cpu"``).
+:mod:`pgslam_tpu.slam` (single-threaded; the threaded facade is
+:class:`~pgslam_tpu_torch.pipeline.PoseGraphSlamMT`). Tensors live on
+``device`` (the GPU unless the caller passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -58,31 +59,43 @@ class PoseGraphSlam:
     AddData = add_data
 
     def flush(self) -> None:
-        """Nothing is in flight on the per-scan path."""
+        """Commit every buffered and in-flight scan and every deferred
+        loop-closure verification (``sync_lag``, ``micro_batch``,
+        ``deferred_verification``); nothing on the classic path. Every
+        accessor below calls it, so reads reflect every scan given to
+        :meth:`add_data`."""
+        self.localizer.flush()
 
     @property
     def T_world_robot(self) -> np.ndarray:
+        self.flush()
         return self.localizer.T_world_robot
 
     def get_graph(self):
+        self.flush()
         return self.map_manager.get_graph()
 
     def get_local_map(self) -> Tuple[Optional[Cloud], bool]:
+        self.flush()
         return self.localizer.get_local_map()
 
     def get_local_map_in_world_frame(self) -> Tuple[Optional[Cloud], bool]:
+        self.flush()
         return self.localizer.get_local_map_in_world_frame()
 
     def trajectory(self) -> np.ndarray:
         """Optimized keyframe poses ``[n, 4, 4]``."""
+        self.flush()
         g = self.map_manager.get_graph()
         return g.optimized_poses[:g.n_vertices].copy()
 
     def n_loop_edges(self) -> int:
+        self.flush()
         g = self.map_manager.get_graph()
         return int(np.sum(g.edge_type[:g.n_edges] == LOOP_CONSTRAINT))
 
     def write_graphviz(self, path: str) -> None:
+        self.flush()
         self.map_manager.write_graphviz(path)
 
     WriteGraphviz = write_graphviz

@@ -668,3 +668,54 @@ def test_loop_replay_launches_every_kernel(cuda):
     after = (knn.launches, fused_icp_register.launches,
              lm_optimize.launches)
     assert all(a > b for a, b in zip(after, before))
+
+
+def test_fetch_async_lands_the_packed_result(cuda):
+    """One packed result goes to pinned host memory without a blocking
+    copy; get() waits on its event and gives to_host's bits."""
+    from pgslam_tpu_torch.ops.icp import (fetch_async, pack_result, to_host,
+                                          unpack_result)
+    rds, rfs = _box_problems(cuda, 1)
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
+                    max_iterations=12)
+    res = fused_icp_register(stack_clouds(rds), stack_clouds(rfs),
+                             torch.eye(4, device=cuda)[None], cfg)
+    fetch = fetch_async(pack_result(res, torch.tensor([0.5], device=cuda)))
+    assert fetch._host.is_pinned()
+    got, extra = unpack_result(fetch.get()[0])
+    want = to_host(res, index=0)
+    for f in ("T", "cov", "overlap", "residual", "iterations", "converged"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert extra == 0.5
+
+
+def test_k2_against_one_shared_map_matches_b1(cuda):
+    """The streaming path's batch: B readings against B materialized
+    copies of one local map, one K2 launch at B, each entry bit-equal to
+    its own B = 1 launch."""
+    from pgslam_tpu_torch.localizer import prepare_register_stream
+    from pgslam_tpu_torch.ops.icp import unpack_result
+    from pgslam_tpu_torch.replays import loop_config, loop_sequence_golden
+    cfg = loop_config().localizer
+    scans, odom, _ = loop_sequence_golden()
+    inv = np.linalg.inv(np.asarray(odom[2], np.float64))
+    rel = [(inv @ np.asarray(o, np.float64)).astype(np.float32)
+           for o in odom[:7]]
+    local = np.concatenate([s @ T[:3, :3].T + T[:3, 3]
+                            for s, T in zip(scans[:3], rel[:3])])
+    ref = make_cloud(local.astype(np.float32), capacity=1536, device=cuda)
+    clouds = [make_cloud(scans[3 + j], capacity=512, device=cuda)
+              for j in range(4)]
+    T_rs = [torch.eye(4, device=cuda)] * 4
+    T0s = torch.as_tensor(np.stack(rel[3:7]), device=cuda)
+    before = fused_icp_register.batch_sizes[4]
+    _, readings, packed = prepare_register_stream(
+        (), cfg.keyframe_cloud_capacity, cfg.icp, clouds, T_rs, ref, T0s)
+    assert fused_icp_register.batch_sizes[4] == before + 1
+    for j in range(4):
+        one = fused_icp_register(
+            readings[j].map(lambda a: a[None]),
+            ref.map(lambda a: a[None].contiguous()), T0s[j:j + 1], cfg.icp)
+        got, _ = unpack_result(packed[j].cpu().numpy())
+        np.testing.assert_array_equal(got.T, one.T[0].cpu().numpy())
+        assert int(got.iterations) == int(one.iterations[0])

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pgslam_tpu_torch import replays
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE_TOL_M = 0.10   # the envelope pgslam_tpu allows its own non-ST paths
@@ -60,7 +61,9 @@ _BLOCK_JAX = (
     "import pgslam_tpu_torch.parallel.batched\n"
     "import pgslam_tpu_torch.parallel.multi_agent\n"
     "import pgslam_tpu_torch.fleet_problems\n"
+    "import pgslam_tpu_torch.pipeline, pgslam_tpu_torch.utils.prefetch\n"
     "from pgslam_tpu_torch import MultiAgentSlam, batched_register\n"
+    "from pgslam_tpu_torch import PoseGraphSlamMT\n"
     "print('imported')\n")
 
 
@@ -90,18 +93,33 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_unported_paths_raise():
+    """The settings still unported raise NotImplementedError: the grid
+    matcher, VoxelGrid's sort method, a fleet on a device mesh, and a
+    filter the port lacks (here the JAX package's MaxDist, as
+    ``convert.config_from_dict`` meets it in a real config)."""
     import dataclasses
+
+    from pgslam_tpu_torch.convert import config_from_dict
+    from pgslam_tpu_torch.localizer import LocalizerConfig
+    from pgslam_tpu_torch.ops import filters as F
+    from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
     cfg = replays.loop_config()
-    for loc in ({"sync_lag": 2}, {"micro_batch": 4},
-                {"force_deferred": True}):
-        bad = dataclasses.replace(cfg, localizer=dataclasses.replace(
-            cfg.localizer, **loc))
-        with pytest.raises(NotImplementedError):
-            replays.PoseGraphSlam(bad, device="cpu")
-    bad = dataclasses.replace(cfg, loop_closer=dataclasses.replace(
-        cfg.loop_closer, deferred_verification=True))
+    grid = dataclasses.replace(cfg, localizer=dataclasses.replace(
+        cfg.localizer, icp=dataclasses.replace(cfg.localizer.icp,
+                                               matcher="grid")))
     with pytest.raises(NotImplementedError):
-        replays.PoseGraphSlam(bad, device="cpu")
+        replays.PoseGraphSlam(grid, device="cpu")
+    sort = dataclasses.replace(cfg, localizer=dataclasses.replace(
+        cfg.localizer, input_filters=(F.VoxelGrid(method="sort"),)))
+    scans, odom, _ = replays.loop_sequence_golden()
+    with pytest.raises(NotImplementedError):
+        replays.PoseGraphSlam(sort, device="cpu").add_data(
+            0, "world", odom[0], np.eye(4), scans[0])
+    with pytest.raises(NotImplementedError):
+        MultiAgentSlam(cfg, n_agents=2, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        config_from_dict(LocalizerConfig, {
+            "input_filters": [{"dist": 30.0, "dim": -1}]})
 
 
 def _entry_points():
@@ -110,6 +128,7 @@ def _entry_points():
     from pgslam_tpu_torch.loopcloser import LoopCloser
     from pgslam_tpu_torch.optimizer import Optimizer
     from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
+    from pgslam_tpu_torch.pipeline import PoseGraphSlamMT
     return {
         "PoseGraphSlam": lambda **kw: replays.PoseGraphSlam(
             replays.loop_config(), **kw).device,
@@ -120,11 +139,14 @@ def _entry_points():
         "Localizer": lambda **kw: Localizer(MapManager(), **kw).device,
         "MultiAgentSlam": lambda **kw: MultiAgentSlam(
             replays.loop_config(), n_agents=2, **kw).device,
+        "PoseGraphSlamMT": lambda **kw: PoseGraphSlamMT(
+            replays.loop_config(), **kw).device,
     }
 
 
 @pytest.mark.parametrize("name", ["PoseGraphSlam", "Optimizer", "LoopCloser",
-                                  "Localizer", "MultiAgentSlam"])
+                                  "Localizer", "MultiAgentSlam",
+                                  "PoseGraphSlamMT"])
 def test_entry_points_default_to_the_gpu(name):
     make = _entry_points()[name]
     assert make(device="cpu").type == "cpu"
