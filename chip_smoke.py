@@ -61,11 +61,28 @@ failure, and prints the final JSON line only when every phase passed):
    lag-shifted truth, ms per scan beside lag 0's (deferred replays are
    synchronized once, after their flush); and ``PoseGraphSlamMT`` on the
    loop, lockstep (+-1 scan, 0.10 m) and free-running (final pose).
-   Phase k2 also checks the streaming shape, 4 x 512 vs 1536.
+   Phase k2 also checks the streaming shape, 4 x 512 vs 1536;
+8. config and persistence: the 300-scan clover (``replay_long``: 50
+   keyframes, 3 closures, 3 optimizes, every scan within 0.10 m of
+   ``golden_replay_long.npz`` up to the first scan whose decision
+   differs from the JAX run's; then the truth envelope and final pose of
+   ``pgslam_tpu``'s own non-bitwise paths and the ATE within 0.05 m of
+   the fixture's; the replay again with plain K1 for the same bits, and
+   K3 at its optimizes against the plain LM); ``slam_config.yaml``
+   through ``from_yaml`` over the 2048-point clover
+   (``replay_yaml_clover``) against ``golden_replay_yaml.npz``; the
+   point-to-plane YAML through ``from_config_paths`` on the same scans
+   (``replay_p2plane``: RandomSampling, ObservationDirection, MaxDist,
+   normals at k = 10), twice for the same bits, held to the truth; the
+   loop on the grid matcher (``replay_grid``) against
+   ``golden_replay_grid.npz``; and the loop checkpointed at scan 35 and
+   resumed by a fresh facade (``resume``), with its KITTI, TUM and PLY
+   files read back. Phase k1 also checks the YAML replays' shapes (1024
+   x 3072 k = 1, 3072 x 3072 k = 10) and k = 16.
 
-The launch counters are zeroed before each of the paths 3-7 and read
+The launch counters are zeroed before each of the paths 3-8 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
-B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4), and the
+B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4, K1-K3), and the
 launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
 checked and timed, and its most-launched K4 shapes, every one of which
@@ -90,6 +107,15 @@ times K2 at phase k2's verification shape, at the headline batch and at
 its first 16 entries at fixed layouts (cluster size C, map slices S),
 each against the layout ``k2_layout`` chooses, whose bits every one must
 give (about a minute).
+
+    python3 chip_smoke.py --replay-witness
+
+runs the loop, grid and long replays on the card with K1 and K3, with
+either or both replaced by its plain version, and on the machine's CPU;
+prints where each run departs from its fixture and from the CPU run, and
+K3 against the plain LM at every optimize of the card run; writes the
+per-scan poses and compositions to ``chiprun_out/witness_*.npz`` (about
+three minutes).
 
     python3 chip_smoke.py --k1-layouts
 
@@ -192,6 +218,37 @@ K1_LOOP_SHAPE = (512, 1536, 1)
 # Each path's most-launched K1 shapes that the smoke reads after it; every
 # one must be among phase k1's shapes, which are checked and timed.
 K1_TOP_SHAPES = 3
+# The config-and-persistence path. The long replay (300 scans, three
+# closures) is held to the fixture's decisions where it shares them: the
+# same keyframe, closure and optimize counts, and every scan up to its
+# first local-map composition that differs from the JAX run's within
+# POSE_TOL_M. The fixture decides at knife edges (at scan 90 a keyframe
+# spawns at an overlap of 409 inliers of 512 against a threshold of
+# 409.6), so a run on other arithmetic may take the other branch there,
+# K1 and K3 or no (PERF.md, section 6). Over the whole run it is held to
+# the CPU test's other limits (tests/test_torch_long_replay.py): each
+# scan's error to the truth below max(LONG_TRUTH_FLOOR_M,
+# LONG_TRUTH_FACTOR x) the fixture's (pgslam_tpu's own envelope for its
+# non-bitwise paths on this fixture, tests/test_golden_replay.py:357-374),
+# the ATE no worse than the fixture's plus LONG_ATE_SLACK_M, the final
+# pose within POSE_TOL_M of the fixture's.
+LONG_TRUTH_FLOOR_M, LONG_TRUTH_FACTOR = 0.8, 1.5
+LONG_ATE_SLACK_M = 0.05
+LONG_COUNTS = {"n_keyframes": 50, "n_loops": 3, "opt_runs": 3}
+# A replay run departs from another at the first scan more than this
+# apart (phase_replay_witness).
+WITNESS_TOL_M = 1e-4
+# The point-to-plane replay draws RandomSampling's keep masks from torch
+# generators, not Threefry, so it is held to the truth: its largest
+# per-scan error below the JAX package's run's (golden_replay_p2plane.npz)
+# plus P2PLANE_TRUTH_MARGIN_M, and a keyframe count within
+# P2PLANE_KEYFRAME_WINDOW of that run's; both set before the first card
+# run from the JAX run and two CPU runs of the port under other seeds
+# (PERF.md, section 6).
+P2PLANE_TRUTH_MARGIN_M = 1.0
+P2PLANE_KEYFRAME_WINDOW = 3
+# The resumed loop: a checkpoint after scan RESUME_AT - 1.
+RESUME_AT = 35
 K4_X_RTOL = 1e-3          # of max|x_plain|: fp32 CG with another sum order
 K4_RESIDUAL_FACTOR = 1.5  # |A x + b| / |b| <= this * sqrt(cg_tol)
 # The pgo phase holds each route to its plain loop: poses (m) and final
@@ -318,20 +375,32 @@ def k1_cases(scans):
     profile's scan-to-map match (2048 x 8192), its coarse stage (every
     8th of those 2048 points, coarse_div 8), its normals (8192 x 8192,
     k = 8) and a whole scan against a whole scan, from the corridor's
-    scans 0 and 1; and the loop replay's one shape (K1_LOOP_SHAPE), scan
-    3 of its sequence against the map of scans 0-2, in the world frame."""
-    from pgslam_tpu_torch.replays import loop_sequence_golden
+    scans 0 and 1; the loop replay's one shape (K1_LOOP_SHAPE), scan
+    3 of its sequence against the map of scans 0-2, in the world frame;
+    and the YAML replays' shapes on the 2048-point clover (a scan's
+    keyframe capacity of 1024 points against the local map of three
+    keyframes; that map's normals at k = 10, the point-to-plane YAML's
+    SurfaceNormal, and at k = 16, K1's largest k)."""
+    from pgslam_tpu_torch.replays import (loop_sequence_golden,
+                                          yaml_clover_sequence)
     s0, s1 = scans[0], scans[1]
     loop, _, truth = loop_sequence_golden()
     world = [(c @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
              for c, T in zip(loop[:4], truth[:4])]
     nq, nr, k = K1_LOOP_SHAPE
+    clover, _, ctruth = yaml_clover_sequence()
+    cworld = [(c[:1024] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+              for c, T in zip(clover[:4], ctruth[:4])]
+    cmap = np.concatenate(cworld[:3])
     return [("2048x8192_k1", s1[:2048], s0[:8192], 1, 20),
             ("256x8192_k1_coarse", s1[:2048][::8], s0[:8192], 1, 20),
             ("8192x8192_k8", s0[:8192], s0[:8192], 8, 10),
             ("65536x65536_k1", s1, s0, 1, 3),
             ("512x1536_k1_loop", world[3][:nq], np.concatenate(world[:3])[:nr],
-             k, 50)]
+             k, 50),
+            ("1024x3072_k1_yaml", cworld[3], cmap, 1, 50),
+            ("3072x3072_k10_normals", cmap, cmap, 10, 20),
+            ("3072x3072_k16", cmap, cmap, 16, 20)]
 
 
 def k1_inputs(dev, q, r):
@@ -1703,7 +1772,7 @@ def phase_loop_lag2(dev):
     if not (np.isfinite(per_scan).all() and gap <= POSE_TOL_M
             and stats["n_keyframes"] == int(fix["n_keyframes"])
             and stats["n_loops"] == int(fix["n_loop_edges"])):
-        raise AssertionError(f"replay_loop_lag2: gap {gap}, {stats}")
+        raise AssertionError(f"replay_loop_lag2: gap {gap}, {_brief(stats)}")
     return ms
 
 
@@ -1771,7 +1840,7 @@ def phase_loop_stream4(dev):
             and stats["n_loops"] == int(fix["n_loop_edges"])):
         raise AssertionError(f"replay_loop_stream4: truth err {te} "
                              f"(limit {limit}), final {final}, gap to the "
-                             f"JAX run {gap}, {stats}")
+                             f"JAX run {gap}, {_brief(stats)}")
     return ms
 
 
@@ -1828,8 +1897,444 @@ def phase_mt_loop(dev):
     if not (gap < POSE_TOL_M and final < POSE_TOL_M
             and stats["n_loops"] == int(gold["n_loop_edges"])):
         raise AssertionError(f"mt_loop: lockstep gap {gap}, free final "
-                             f"{final}, {stats}")
+                             f"{final}, {_brief(stats)}")
     return ms
+
+
+def _brief(stats) -> dict:
+    """A replay's stats without its per-scan records."""
+    return {k: v for k, v in stats.items() if "seconds" not in k
+            and k not in ("compositions", "overlaps")}
+
+
+def _counts_equal(stats, fix, keys=("n_keyframes", "n_loops")):
+    fixture_key = {"n_loops": "n_loop_edges"}
+    return all(stats[k] == int(fix[fixture_key.get(k, k)]) for k in keys)
+
+
+def phase_replay_long(dev):
+    """The 300-scan clover (three closures and their re-anchors) against
+    golden_replay_long.npz. Held: equal keyframe, closure and optimize
+    counts; every scan up to the first whose local-map composition
+    differs from the JAX run's (golden_replay_long_eval.npz) within
+    POSE_TOL_M; then each scan's error to the truth inside the fixture's
+    envelope, the ATE no worse than the fixture's plus LONG_ATE_SLACK_M
+    and the final pose within POSE_TOL_M. The kernels are held on the
+    replay itself: the same replay with K1 replaced by its plain version
+    gives the same bits, and K3 at each of the replay's optimizes stays
+    within K3_POSE_TOL_M of the plain LM on the same inputs. Printed
+    beside: the decision scan, the overlaps there, the per-scan gap (also
+    at +-1 scan) and the swaps against the fixture's, ms per scan
+    (synchronized per scan), and ATE and RPE against the fixture's."""
+    from pgslam_tpu_torch import eval as ev
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    recorder = _RecordLM()
+    with recorder:
+        per_scan, _, stats = replays.run_replay("long", device=dev,
+                                                sync=_sync)
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    fix = replays.fixture("long")
+    gold = fix["per_scan_poses"]
+    fev = np.load(os.path.join(replays.FIXTURES,
+                               "golden_replay_long_eval.npz"))
+    decide = _first_comp_change(stats["compositions"], [
+        tuple(c[c >= 0]) for c in fev["compositions"]])
+    shared = len(per_scan) if decide is None else decide
+    shared_gap = replays.max_pose_gap(per_scan[:shared], gold[:shared])
+    truth = np.stack(replays.long_sequence()[2])
+    te = _truth_errs(per_scan, truth).max()
+    limit = max(LONG_TRUTH_FLOOR_M,
+                LONG_TRUTH_FACTOR * _truth_errs(gold, truth).max())
+    ate, fixture_ate = ev.ate_rmse(per_scan, truth), float(fev["ate_rmse"])
+    final = float(np.linalg.norm(per_scan[-1][:3, 3] - gold[-1][:3, 3]))
+    rpe_t, rpe_r = ev.rpe(per_scan, truth)
+    with _Uncounted():
+        with _PlainRoutes(k1=True, k3=False):
+            plain_k1 = replays.run_replay("long", device=dev, sync=_sync)[0]
+        k3_gap = 0.0
+        for args, config in recorder.problems:
+            on_card = [a.to(dev) if hasattr(a, "to") else a for a in args]
+            k3 = lm_optimize(*on_card, config=config)[0]
+            plain = pgo.lm_optimize_plain(*on_card, config=config)[0]
+            k3_gap = max(k3_gap, float((k3[:, :3, 3] - plain[:, :3, 3])
+                                       .abs().max()))
+    k1_bits = bool(np.array_equal(per_scan, plain_k1))
+    counts = {k: stats[k] for k in LONG_COUNTS}
+    at = lambda a, i: None if i is None or a[i] is None \
+        else round(float(a[i]), 5)
+    line("replay_long", scans=len(per_scan),
+         counts=",".join(f"{k}:{v}" for k, v in counts.items()),
+         first_decision_off_fixture=decide,
+         overlap_there=at(stats["overlaps"], decide),
+         fixture_overlap_there=at(fev["overlaps"], decide),
+         gap_before_it_m=round(shared_gap, 5),
+         swaps=stats["n_swaps"], fixture_swaps=int(fix["n_swaps"]),
+         max_gap_m=round(replays.max_pose_gap(per_scan, gold), 5),
+         window1_gap_m=round(replays.max_pose_gap(per_scan, gold, window=1),
+                             5),
+         final_gap_m=round(final, 5),
+         truth_err_m=round(float(te), 5), truth_limit_m=round(float(limit),
+                                                              5),
+         ms_per_scan=round(ms, 3), ate_m=round(ate, 5),
+         fixture_ate_m=round(fixture_ate, 5),
+         rpe_m=round(rpe_t, 5), fixture_rpe_m=round(float(fev["rpe_trans"]),
+                                                   5),
+         rpe_rad=round(rpe_r, 5),
+         fixture_rpe_rad=round(float(fev["rpe_rot"]), 5),
+         k1_plain_bits_equal=k1_bits, optimizes=len(recorder.problems),
+         k3_vs_plain_m=k3_gap)
+    if not (np.isfinite(per_scan).all() and counts == LONG_COUNTS
+            and _counts_equal(stats, fix, LONG_COUNTS)
+            and shared_gap <= POSE_TOL_M and te < limit
+            and ate <= fixture_ate + LONG_ATE_SLACK_M and final < POSE_TOL_M
+            and k1_bits and len(recorder.problems) == LONG_COUNTS["opt_runs"]
+            and k3_gap <= K3_POSE_TOL_M):
+        raise AssertionError(
+            f"replay_long: gap {shared_gap} before scan {decide}, truth err "
+            f"{te} (limit {limit}), ATE {ate} (fixture {fixture_ate}), final "
+            f"{final}, K1 bits {k1_bits}, K3 {k3_gap}, {counts}")
+    return ms
+
+
+def phase_replay_yaml(dev):
+    """examples/slam_config.yaml through from_yaml over the 2048-point
+    clover against the JAX package's run (golden_replay_yaml.npz): equal
+    keyframe and loop counts, every scan within POSE_TOL_M, K1 and K3
+    launched."""
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.ops.knn import knn
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.slam import PoseGraphSlam
+    slam = PoseGraphSlam.from_yaml(replays.SLAM_YAML, device=dev)
+    if slam.config != replays.yaml_config() or slam.device != dev:
+        raise AssertionError("from_yaml gives another config or device")
+    k1, k3 = knn.launches, lm_optimize.launches
+    per_scan, _, stats = replays.run_replay("yaml_clover", device=dev,
+                                            sync=_sync)
+    fix = replays.fixture("yaml_clover")
+    gap = replays.max_pose_gap(per_scan, fix["per_scan_poses"])
+    k1, k3 = knn.launches - k1, lm_optimize.launches - k3
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    line("replay_yaml_clover", scans=len(per_scan),
+         **_counts_line(stats, fix), max_gap_m=round(gap, 5),
+         k1_launches=k1, k3_launches=k3, ms_per_scan=round(ms, 3))
+    if not (np.isfinite(per_scan).all() and gap <= POSE_TOL_M
+            and _counts_equal(stats, fix) and stats["n_loops"] >= 1
+            and k1 > 0 and k3 > 0):
+        raise AssertionError(f"replay_yaml_clover: gap {gap}, K1 {k1}, "
+                             f"K3 {k3}, {_brief(stats)}")
+    return ms
+
+
+def phase_replay_p2plane(dev):
+    """from_config_paths(icp_point_to_plane.yaml, slam_config.yaml's input
+    filters, icp_point_to_plane.yaml) over the same scans, twice: the same
+    bits both times, the largest per-scan error to the truth below the JAX
+    package's run's (golden_replay_p2plane.npz) plus
+    P2PLANE_TRUTH_MARGIN_M, keyframes within P2PLANE_KEYFRAME_WINDOW of
+    its count, and K1 launched at k = 10 (the normals)."""
+    import tempfile
+
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.ops.knn import knn
+    from pgslam_tpu_torch.slam import PoseGraphSlam
+    with tempfile.TemporaryDirectory() as tmp:
+        slam = PoseGraphSlam.from_config_paths(
+            replays.P2PLANE_YAML, replays.input_filters_yaml(tmp),
+            replays.P2PLANE_YAML, device=dev)
+    if slam.config != replays.p2plane_config():
+        raise AssertionError("from_config_paths gives another config")
+    k10 = lambda: sum(c for (_, _, k), c in knn.shapes.items() if k == 10)
+    before = k10()
+    runs = [replays.run_replay("p2plane", device=dev, sync=_sync)
+            for _ in range(2)]
+    (per_scan, _, stats), again = runs[0], runs[1][0]
+    truth = np.stack(replays.yaml_clover_sequence()[2])
+    err = np.linalg.norm(per_scan[:, :3, 3] - truth[:, :3, 3], axis=1)
+    fix = replays.fixture("p2plane")
+    jax_err = np.linalg.norm(fix["per_scan_poses"][:, :3, 3]
+                             - truth[:, :3, 3], axis=1).max()
+    limit = float(jax_err) + P2PLANE_TRUTH_MARGIN_M
+    repeat = bool(np.array_equal(per_scan, again))
+    k10_launches = k10() - before
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    line("replay_p2plane", scans=len(per_scan), **_counts_line(stats, fix),
+         truth_err_m=round(float(err.max()), 5),
+         jax_truth_err_m=round(float(jax_err), 5),
+         truth_limit_m=round(limit, 5),
+         final_truth_err_m=round(float(err[-1]), 5), bits_repeat=repeat,
+         k1_k10_launches=k10_launches, ms_per_scan=round(ms, 3))
+    if not (np.isfinite(per_scan).all() and repeat and err.max() < limit
+            and abs(stats["n_keyframes"] - int(fix["n_keyframes"]))
+            <= P2PLANE_KEYFRAME_WINDOW and k10_launches > 0):
+        raise AssertionError(f"replay_p2plane: truth err {err.max()} "
+                             f"(limit {limit}), repeat {repeat}, K1 at "
+                             f"k = 10 {k10_launches}, {_brief(stats)}")
+    return ms
+
+
+def phase_replay_grid(dev):
+    """The golden loop on the grid matcher against the JAX package's run
+    (golden_replay_grid.npz): equal counts, every scan within
+    POSE_TOL_M."""
+    from pgslam_tpu_torch import replays
+    per_scan, _, stats = replays.run_replay("grid", device=dev, sync=_sync)
+    fix = replays.fixture("grid")
+    gap = replays.max_pose_gap(per_scan, fix["per_scan_poses"])
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    line("replay_grid", scans=len(per_scan), **_counts_line(stats, fix),
+         first_scan_off_fixture=_first_above(replays.per_scan_gaps(
+             per_scan, fix["per_scan_poses"]), WITNESS_TOL_M),
+         max_gap_m=round(gap, 5), ms_per_scan=round(ms, 3))
+    if not (np.isfinite(per_scan).all() and gap <= POSE_TOL_M
+            and _counts_equal(stats, fix, ("n_keyframes", "n_loops",
+                                           "opt_runs", "n_swaps"))):
+        raise AssertionError(f"replay_grid: gap {gap}, {_brief(stats)}")
+    return ms
+
+
+def phase_resume(dev):
+    """The loop checkpointed after scan RESUME_AT - 1 and resumed by a
+    fresh facade: the resumed scans within POSE_TOL_M of
+    golden_replay.npz (their gap to the uninterrupted card run printed),
+    equal counts; the KITTI and TUM trajectories and the global_map PLY
+    written and read back (KITTI and PLY exactly, TUM within 1e-6)."""
+    import tempfile
+
+    from pgslam_tpu_torch import io, replays
+    gold = replays.fixture("loop")
+    with tempfile.TemporaryDirectory() as tmp:
+        full, resumed, slam = replays.run_replay_resumed(
+            "loop", RESUME_AT, os.path.join(tmp, "ckpt.npz"), device=dev,
+            sync=_sync)
+        gap = replays.max_pose_gap(resumed, gold["per_scan_poses"][RESUME_AT:])
+        gap_card = replays.max_pose_gap(resumed, full[RESUME_AT:])
+        traj = slam.trajectory()
+        gmap = slam.global_map()
+        io.save_trajectory_kitti(os.path.join(tmp, "t.kitti"), traj)
+        io.save_trajectory_tum(os.path.join(tmp, "t.tum"), traj)
+        io.save_cloud_ply(os.path.join(tmp, "map.ply"), gmap)
+        kitti = io.load_trajectory_kitti(os.path.join(tmp, "t.kitti"))
+        ts, tum = io.load_trajectory_tum(os.path.join(tmp, "t.tum"))
+        ply = io.load_cloud_ply(os.path.join(tmp, "map.ply"), device=dev)
+        files_ok = bool(
+            np.array_equal(kitti, traj)
+            and np.array_equal(ts, np.arange(len(traj)))
+            and np.abs(tum - traj).max() <= 1e-6
+            and np.array_equal(ply.points.cpu().numpy(), gmap))
+    keyframes, loops = slam.get_graph().n_vertices, slam.n_loop_edges()
+    line("resume", at_scan=RESUME_AT, scans=len(resumed),
+         max_gap_to_fixture_m=round(gap, 5),
+         max_gap_to_uninterrupted_m=round(gap_card, 6), keyframes=keyframes,
+         loop_edges=loops, fixture_keyframes=len(gold["trajectory"]),
+         fixture_loop_edges=int(gold["n_loop_edges"]),
+         map_points=len(gmap), files_round_trip=files_ok)
+    if not (np.isfinite(resumed).all() and gap <= POSE_TOL_M and files_ok
+            and keyframes == len(gold["trajectory"])
+            and loops == int(gold["n_loop_edges"])):
+        raise AssertionError(f"resume: gap {gap}, files {files_ok}, "
+                             f"{keyframes}/{loops}")
+
+
+def _first_above(gaps, tol):
+    """The first index whose gap exceeds ``tol``, or None."""
+    ix = np.flatnonzero(np.asarray(gaps) > tol)
+    return int(ix[0]) if len(ix) else None
+
+
+def _first_comp_change(a, b):
+    """The first scan whose composition differs between two runs."""
+    ix = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    return ix[0] if ix else None
+
+
+class _Uncounted:
+    """Keep the launches made inside out of every kernel's counts: a
+    replay's witnesses and its kernel-against-plain comparisons are not
+    the path's."""
+
+    TALLIES = ("shapes", "batch_sizes")
+
+    def __enter__(self):
+        from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
+        from pgslam_tpu_torch.ops.knn import knn
+        from pgslam_tpu_torch.optim.lm import lm_optimize
+        from pgslam_tpu_torch.optim.pcg import pcg_solve
+        self.saved = [(w, w.launches, {t: getattr(w, t).copy()
+                                       for t in self.TALLIES if hasattr(w, t)})
+                      for w in (knn, fused_icp_register, lm_optimize,
+                                pcg_solve)]
+        return self
+
+    def __exit__(self, *exc):
+        for w, launches, tallies in self.saved:
+            w.launches = launches
+            for t, v in tallies.items():
+                setattr(w, t, v)
+
+
+class _PlainRoutes:
+    """Replace K1 (in the ICP matcher and the normals) and K3 (in the
+    optimizer) by their plain PyTorch versions on CUDA tensors, for a
+    second witness of a replay on the card; restored on exit."""
+
+    def __init__(self, k1: bool, k3: bool):
+        from pgslam_tpu_torch.ops import filters, icp, knn
+        from pgslam_tpu_torch.optim import lm, pgo
+        self.patches = []
+        if k1:
+            plain = lambda q, qm, r, rm, k=1: knn.knn_plain(q, qm, r, rm, k)
+            self.patches += [(icp, "knn", plain), (filters, "knn", plain)]
+        if k3:
+            self.patches.append((lm, "lm_optimize", lambda *a, config:
+                                 pgo.lm_optimize_plain(*a, config=config)))
+        self.saved = []
+
+    def __enter__(self):
+        for mod, attr, fn in self.patches:
+            self.saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+class _RecordLM:
+    """Keep the arguments of every pose-graph optimize (on the host)
+    while active."""
+
+    LM_ARGS = ("poses", "vmask", "edge_from", "edge_to", "edge_T",
+               "edge_cov", "emask", "fixed_id", "robust_emask")
+
+    def __init__(self):
+        self.problems = []
+
+    def __enter__(self):
+        from pgslam_tpu_torch import optimizer
+        self.mod, self.orig = optimizer, optimizer.optimize_pose_graph
+
+        def record(*args, robust_emask=None, config):
+            self.problems.append(([a.detach().cpu() if hasattr(a, "detach")
+                                   else a for a in args + (robust_emask,)],
+                                  config))
+            return self.orig(*args, robust_emask=robust_emask,
+                             config=config)
+        optimizer.optimize_pose_graph = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.optimize_pose_graph = self.orig
+
+
+def witness_k3(dev, name, problems, out_dir):
+    """K3, the plain LM on the card and the plain LM on the CPU at each
+    optimize a replay launched: the largest translation gap between their
+    poses, their LM iterations and final costs."""
+    from pgslam_tpu_torch.optim import lm, pgo
+    saved = {}
+    for n, (args, config) in enumerate(problems):
+        on = lambda d: [a.to(d) if hasattr(a, "to") else a for a in args]
+        out = {"k3": lm.lm_optimize(*on(dev), config=config),
+               "plain_card": pgo.lm_optimize_plain(*on(dev), config=config),
+               "plain_cpu": pgo.lm_optimize_plain(*on("cpu"), config=config)}
+        t = {k: v[0][:, :3, 3].cpu().numpy() for k, v in out.items()}
+        gap = lambda a, b: float(np.abs(t[a] - t[b]).max())
+        line("replay_witness_k3", replay=name, optimize=n,
+             poses=int(args[1].sum()), edges=int(args[6].sum()),
+             k3_vs_plain_card_m=gap("k3", "plain_card"),
+             k3_vs_plain_cpu_m=gap("k3", "plain_cpu"),
+             plain_card_vs_cpu_m=gap("plain_card", "plain_cpu"),
+             **{f"{k}_iterations": int(v[1]["iterations"])
+                for k, v in out.items()},
+             **{f"{k}_final_cost": float(v[1]["final_cost"])
+                for k, v in out.items()})
+        for k, a in zip(_RecordLM.LM_ARGS, args):
+            if a is not None:
+                saved[f"p{n}_{k}"] = np.asarray(a)
+        for k, v in out.items():
+            saved[f"p{n}_{k}_poses"] = v[0].cpu().numpy()
+    np.savez(os.path.join(out_dir, f"witness_{name}_lm.npz"), **saved)
+
+
+WITNESS_REPLAYS = ("loop", "grid", "long")
+WITNESS_RUNS = (("card", True, True), ("card_plain_k1", False, True),
+                ("card_plain_k3", True, False), ("card_plain", False, False),
+                ("host", None, None))
+
+
+def phase_replay_witness(dev, out_dir="chiprun_out"):
+    """Each replay of WITNESS_REPLAYS on the card with K1 and K3, with
+    either or both replaced by its plain PyTorch version on the card, and
+    on the machine's CPU at one thread: per run the first scan more than
+    WITNESS_TOL_M from the fixture and from the CPU run, the first scan
+    whose local-map composition differs from the CPU run's, the largest
+    gap (also at +-1 scan), counts and swaps, and the K1 and K3 launches;
+    and :func:`witness_k3` at the optimizes of the run with K1 and K3.
+    The per-scan poses and compositions go to
+    ``<out_dir>/witness_<replay>.npz``."""
+    import torch
+    from pgslam_tpu_torch import eval as ev
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.ops.knn import knn
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    os.makedirs(out_dir, exist_ok=True)
+    for name in WITNESS_REPLAYS:
+        fix = replays.fixture(name)
+        gold = fix["per_scan_poses"]
+        truth = np.stack(replays.REPLAYS[name][0]()[2])
+        runs = {}
+        for label, k1, k3 in WITNESS_RUNS:
+            threads = torch.get_num_threads()
+            if label == "host":
+                torch.set_num_threads(1)
+                run = lambda: replays.run_replay(name, device="cpu")
+            else:
+                run = lambda: replays.run_replay(name, device=dev, sync=_sync)
+            k1n, k3n = knn.launches, lm_optimize.launches
+            recorder = _RecordLM()
+            with _PlainRoutes(k1=not k1, k3=not k3), recorder:
+                per_scan, _, stats = run()
+            torch.set_num_threads(threads)
+            runs[label] = (per_scan, stats["compositions"])
+            k1n, k3n = knn.launches - k1n, lm_optimize.launches - k3n
+            line("replay_witness", replay=name, run=label,
+                 first_scan_off_fixture=_first_above(
+                     replays.per_scan_gaps(per_scan, gold), WITNESS_TOL_M),
+                 max_gap_m=round(replays.max_pose_gap(per_scan, gold), 5),
+                 window1_gap_m=round(replays.max_pose_gap(per_scan, gold,
+                                                          window=1), 5),
+                 keyframes=stats["n_keyframes"], loops=stats["n_loops"],
+                 opt_runs=stats["opt_runs"], swaps=stats["n_swaps"],
+                 fixture_counts="/".join(str(int(fix[k])) if k in fix
+                                         else "-" for k in (
+                                             "n_keyframes", "n_loop_edges",
+                                             "opt_runs", "n_swaps")),
+                 fixture_trajectory=len(fix["trajectory"]),
+                 ate_m=round(ev.ate_rmse(per_scan, truth), 5),
+                 fixture_ate_m=round(ev.ate_rmse(gold, truth), 5),
+                 k1_launches=k1n, k3_launches=k3n)
+            if label == "card":
+                witness_k3(dev, name, recorder.problems, out_dir)
+        host_poses, host_comps = runs["host"]
+        for label, (per_scan, comps) in runs.items():
+            if label != "host":
+                line("replay_witness_vs_host", replay=name, run=label,
+                     first_scan_off_host=_first_above(
+                         replays.per_scan_gaps(per_scan, host_poses),
+                         WITNESS_TOL_M),
+                     first_composition_change=_first_comp_change(
+                         comps, host_comps),
+                     max_gap_to_host_m=round(replays.max_pose_gap(
+                         per_scan, host_poses), 5))
+        width = max(len(c) for _, cs in runs.values() for c in cs)
+        np.savez(os.path.join(out_dir, f"witness_{name}.npz"), **{
+            f"{label}_{part}": arr for label, (poses, comps) in runs.items()
+            for part, arr in (("poses", poses), ("comps", np.array(
+                [list(c) + [-1] * (width - len(c)) for c in comps])))})
 
 
 def main() -> int:
@@ -1877,6 +2382,9 @@ def main() -> int:
         return 0
     if "--k4-layouts" in sys.argv[1:]:
         phase_k4_layouts(dev)
+        return 0
+    if "--replay-witness" in sys.argv[1:]:
+        phase_replay_witness(dev)
         return 0
     seq = corridor_64k_sequence()
     if "--k2-layouts" in sys.argv[1:]:
@@ -1988,10 +2496,22 @@ def main() -> int:
         raise AssertionError(f"a kernel of the deferred path never ran "
                              f"(K1-K4 {deferred}, K2 batch sizes "
                              f"{deferred_batches})")
+    reset()
+    config_ms = {"replay_long": phase_replay_long(dev),
+                 "replay_yaml_clover": phase_replay_yaml(dev),
+                 "replay_p2plane": phase_replay_p2plane(dev),
+                 "replay_grid": phase_replay_grid(dev)}
+    phase_resume(dev)
+    config = counts()
+    top_shapes("config")
+    if min(config[:3]) == 0:
+        raise AssertionError(f"a kernel of the config and persistence path "
+                             f"never ran (K1-K4 {config})")
     line("launches", per_scan=",".join(map(str, per_scan)),
          pgo=",".join(map(str, pgo_path)), batched=",".join(map(str, batched)),
          fleet=",".join(map(str, fleet)),
          deferred=",".join(map(str, deferred)),
+         config=",".join(map(str, config)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
          deferred_k2_batch_sizes=",".join(
@@ -2008,7 +2528,7 @@ def main() -> int:
             for p, (_, mean) in k4_shapes.items()})
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
-             "fleet": fleet, "deferred": deferred}
+             "fleet": fleet, "deferred": deferred, "config": config}
     k1_main = k1_times["2048x8192_k1"]
     k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
     k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
@@ -2025,7 +2545,8 @@ def main() -> int:
                        for n, t in k1_times.items()},
           "top_shapes_by_path": {p: [f"{q}x{r}x{k}:{c}"
                                      for (q, r, k), c in top]
-                                 for p, top in k1_shapes.items()}}),
+                                 for p, top in k1_shapes.items()},
+          "config_ms_per_scan": config_ms}),
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
          max(k2h_err, k2_err, k2_aa_err, k2s[0]), k2h_ms, k2h_pms, k2h_bnd,
          {"shape": "128 x 1024 vs 8192, batched_icp_config",

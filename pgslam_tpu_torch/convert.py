@@ -3,9 +3,10 @@ numpy arrays and plain dicts (no import of the JAX package).
 
 * :func:`cloud_from_numpy` - a :class:`Cloud` from points, mask and
   descriptors;
-* :func:`config_from_dict` - a port config from ``dataclasses.asdict`` of
-  the JAX config of the same name (nested configs, filter and outlier
-  tuples included);
+* :func:`config_to_dict` and :func:`config_from_dict` - a config as
+  plain dicts, each filter or outlier entry tagged with its class name,
+  and a port config rebuilt from such dicts (of either package's config
+  of the same name);
 * :func:`graph_from_arrays` - a :class:`PoseGraph` from its arrays.
 """
 
@@ -22,8 +23,8 @@ from .graph.pose_graph import PoseGraph
 from .ops import filters as F
 from .ops import outlier as O
 
-_OUTLIERS = (O.TrimmedDist, O.MaxDist)
-_FILTERS = (F.VoxelGrid, F.Compact, F.SurfaceNormal)
+_OUTLIERS = {c.__name__: c for c in O.OUTLIERS}
+_FILTERS = {c.__name__: c for c in F.FILTERS}
 _CHAIN_FIELDS = {"outlier": _OUTLIERS, "reading_filters": _FILTERS,
                  "reference_filters": _FILTERS, "input_filters": _FILTERS}
 
@@ -39,18 +40,33 @@ def cloud_from_numpy(points, mask=None, descriptors=None,
     return Cloud(points=pts, mask=m, descriptors=desc)
 
 
-def _chain_entry(d: dict, classes):
-    """The one class of ``classes`` whose field names are ``d``'s keys."""
-    keys = set(d)
-    for cls in classes:
-        if {f.name for f in dataclasses.fields(cls)} == keys:
-            return cls(**d)
-    raise NotImplementedError(
-        f"no ported filter/outlier has the fields {sorted(keys)}")
+def config_to_dict(cfg) -> dict:
+    """``dataclasses.asdict`` of ``cfg``, except that each filter or
+    outlier entry of a chain becomes ``(class name, its fields)``."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        value = getattr(cfg, f.name)
+        if f.name in _CHAIN_FIELDS:
+            out[f.name] = [(type(x).__name__, dataclasses.asdict(x))
+                           for x in value]
+        elif dataclasses.is_dataclass(value):
+            out[f.name] = config_to_dict(value)
+        else:
+            out[f.name] = value
+    return out
+
+
+def _chain_entry(entry, classes: dict):
+    """The port's config of a ``(class name, fields)`` entry."""
+    name, fields = entry
+    if name not in classes:
+        raise ValueError(f"unknown filter or outlier {name!r}")
+    return classes[name](**fields)
 
 
 def config_from_dict(cls, d: dict):
-    """``cls(**d)`` with nested configs and chains rebuilt."""
+    """``cls(**d)`` with nested configs and tagged chains
+    (:func:`config_to_dict`) rebuilt."""
     names = {f.name: f for f in dataclasses.fields(cls)}
     unknown = set(d) - set(names)
     if unknown:

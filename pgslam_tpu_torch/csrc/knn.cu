@@ -1,4 +1,4 @@
-// K1: exact masked k-nearest-neighbour search (k <= 8).
+// K1: exact masked k-nearest-neighbour search (k <= 16).
 //
 // Replaces pgslam_tpu/ops/knn_pallas.py::nn_pallas (body _kernel). The
 // semantics are those of pgslam_tpu_torch/ops/knn.py::knn_plain:
@@ -196,6 +196,14 @@ Kernel pick(int k) {
     case 6: return knn_kernel<6>;
     case 7: return knn_kernel<7>;
     case 8: return knn_kernel<8>;
+    case 9: return knn_kernel<9>;
+    case 10: return knn_kernel<10>;
+    case 11: return knn_kernel<11>;
+    case 12: return knn_kernel<12>;
+    case 13: return knn_kernel<13>;
+    case 14: return knn_kernel<14>;
+    case 15: return knn_kernel<15>;
+    case 16: return knn_kernel<16>;
     default: return nullptr;
   }
 }

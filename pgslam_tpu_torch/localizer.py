@@ -85,20 +85,23 @@ class LocalizerConfig:
 
 
 def prepare_input(chain, capacity: int, cloud: Cloud,
-                  T_robot_sensor: torch.Tensor) -> Cloud:
-    """Input filters in the sensor frame, compaction to the keyframe
-    capacity, then the sensor->robot transform."""
-    cloud = F.apply_chain(chain, dequantize_cloud(cloud))
+                  T_robot_sensor: torch.Tensor, seed: int = 0) -> Cloud:
+    """Input filters in the sensor frame (their draws seeded by ``seed``,
+    the scan's count), compaction to the keyframe capacity, then the
+    sensor->robot transform."""
+    cloud = F.apply_chain(chain, dequantize_cloud(cloud), seed)
     return transform_cloud(T_robot_sensor, F.compact(cloud, capacity))
 
 
 def prepare_input_batched(chain, capacity: int, clouds, T_robot_sensors,
-                          reading_chain=()):
+                          reading_chain=(), seeds=None):
     """A fleet's input preparation (``_prepare_input_batched``): per agent
-    :func:`prepare_input`, then the reading filter chain. Returns the
+    :func:`prepare_input` under its seed (its scan count; 0 when
+    ``seeds`` is None), then the reading filter chain. Returns the
     prepared clouds and readings, one each per agent."""
-    prepped = [prepare_input(chain, capacity, c, T)
-               for c, T in zip(clouds, T_robot_sensors)]
+    seeds = [0] * len(clouds) if seeds is None else seeds
+    prepped = [prepare_input(chain, capacity, c, T, seed)
+               for c, T, seed in zip(clouds, T_robot_sensors, seeds)]
     return prepped, [F.apply_chain(reading_chain, c) for c in prepped]
 
 
@@ -128,7 +131,7 @@ def probe_overlap_from_batched(readings, worlds, T_world_robots,
 
 def prepare_register_stream(chain, capacity: int, cfg: ICPConfig, clouds,
                             T_robot_sensors, reference: Cloud,
-                            T0s: torch.Tensor):
+                            T0s: torch.Tensor, seeds=None):
     """The streaming path's batch (``_prepare_register_stream``): each
     scan's input preparation and reading filters, then one
     :func:`batched_register` of all B readings against B copies of the
@@ -137,7 +140,7 @@ def prepare_register_stream(chain, capacity: int, cfg: ICPConfig, clouds,
     clouds, the readings and the packed results ``[B, 59]``."""
     prepped, readings = prepare_input_batched(chain, capacity, clouds,
                                               T_robot_sensors,
-                                              cfg.reading_filters)
+                                              cfg.reading_filters, seeds)
     B = len(prepped)
     refs = reference.map(lambda a: a[None].expand(B, *a.shape).contiguous())
     result = batched_register(stack_clouds(readings), refs, T0s, cfg)
@@ -202,6 +205,34 @@ class Localizer:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    # -- configuration setters ---------------------------------------------
+
+    def set_local_map_max_size(self, size: int) -> None:
+        self.local_map = LocalMap(size)
+        self.next_composition = Composition(size)
+
+    def set_overlap_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config, overlap_threshold=v)
+
+    def set_minimal_overlap_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config, minimal_overlap=v)
+
+    def set_icp_config(self, path: str) -> None:
+        """Load an ICP YAML; a live local map is installed in the new
+        engine."""
+        from .config import load_icp_config
+        icp = load_icp_config(path)
+        self.config = dataclasses.replace(self.config, icp=icp)
+        self.icp_engine = ICPEngine(icp)
+        if self.local_map.has_cloud():
+            self.icp_engine.set_map(self.local_map.cloud())
+
+    def set_input_filters_config(self, path: str) -> None:
+        """Load the input filter chain from a YAML list."""
+        from .config import load_input_filters
+        self.config = dataclasses.replace(
+            self.config, input_filters=load_input_filters(path))
 
     # -- data entry --------------------------------------------------------
 
@@ -292,11 +323,13 @@ class Localizer:
         the host is started, nothing waits for it."""
         cloud = prepare_input(self.config.input_filters,
                               self.config.keyframe_cloud_capacity,
-                              input_cloud, self._tensor(T_rs))
+                              input_cloud, self._tensor(T_rs),
+                              self.count - 1)
         reading = self.icp_engine.prepare_reading(cloud)
         probe_comp = self.neighbor_probe_request(T_world_robot=T_pred)
         result = icp_core(reading, self.icp_engine.reference,
-                          self._tensor(T0), self.icp_engine.config)
+                          self._tensor(T0), self.icp_engine.config,
+                          self.icp_engine.index)
         ov = None
         if probe_comp is not None:
             ov = compute_overlap(reading, self._cached_probe_map(probe_comp),
@@ -366,7 +399,7 @@ class Localizer:
         batch and hand them to the deferred commits (a commit lags up to
         ``micro_batch + sync_lag`` scans)."""
         log.info("[Localizer] Buffering cloud #%d (stream)", self.count)
-        self._microbuf.append((odom, T_rs, input_cloud))
+        self._microbuf.append((odom, T_rs, input_cloud, self.count))
         self.count += 1
         self.last_input_T_world_robot = odom
         if len(self._microbuf) >= self.config.micro_batch:
@@ -387,12 +420,13 @@ class Localizer:
                                            np.float64)))
         T0s = np.stack([_orthonormalize(
             (Tinv @ base @ np.asarray(o, np.float64)).astype(np.float32))
-            for o, _, _ in buf_p])
+            for o, _, _, _ in buf_p])
         clouds, readings, packed = prepare_register_stream(
             self.config.input_filters, self.config.keyframe_cloud_capacity,
-            self.icp_engine.config, [c for _, _, c in buf_p],
-            [self._tensor(t) for _, t, _ in buf_p],
-            self.icp_engine.reference, self._tensor(T0s))
+            self.icp_engine.config, [c for _, _, c, _ in buf_p],
+            [self._tensor(t) for _, t, _, _ in buf_p],
+            self.icp_engine.reference, self._tensor(T0s),
+            seeds=[n for _, _, _, n in buf_p])
         fetch = fetch_async(packed)
         # The speculative neighbour probe is skipped in this mode.
         for j in range(n):
@@ -425,7 +459,7 @@ class Localizer:
         self.count += 1
         cloud = prepared if prepared is not None else prepare_input(
             self.config.input_filters, self.config.keyframe_cloud_capacity,
-            input_cloud, self._tensor(input_T_robot_sensor))
+            input_cloud, self._tensor(input_T_robot_sensor), self.count - 1)
         self.input_cloud = cloud
         if not self.local_map.has_cloud():
             self.process_first_cloud(cloud, input_T_world_robot)

@@ -24,9 +24,10 @@ from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .graph.shortest_path import candidate_composition, dijkstra
 from .localmap import Composition, LocalMap, batch_rebuild
 from .ops import filters as F
-from .ops.icp import (ICPConfig, ICPResult, compute_residual, eps_dead_zone,
-                      eps_margin, fetch_async, icp_core, pack_result,
-                      reference_chain, to_host, unpack_result)
+from .ops.icp import (ICPConfig, ICPResult, compute_residual,
+                      eps_dead_zone, eps_margin, fetch_async, icp_core,
+                      pack_result, reference_chain, reference_index,
+                      to_host, unpack_result)
 from .ops.icp_fused import fused_eligible, fused_icp_register
 from .utils import counters
 
@@ -51,7 +52,9 @@ class LoopCloserConfig:
 def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
            cfg: ICPConfig) -> torch.Tensor:
     """The verification stage: both filter chains, the registration (K2
-    when eligible), and the fresh residual at the result. Returns the
+    when eligible, else ``icp_core``, through the filtered reference's
+    grid index under ``matcher="grid"``), and the fresh residual at the
+    result (matched without the index, as in JAX). Returns the
     result packed with the residual in its extra slot (``pack_result``),
     on the clouds' device."""
     reading = F.apply_chain(cfg.reading_filters, reading)
@@ -64,7 +67,7 @@ def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
             for f in dataclasses.fields(res)
             if getattr(res, f.name) is not None})
     else:
-        res = icp_core(reading, ref, T0, cfg)
+        res = icp_core(reading, ref, T0, cfg, reference_index(ref, cfg))
     return pack_result(res, compute_residual(reading, ref, res.T, cfg))
 
 
@@ -123,7 +126,9 @@ class LoopCloser:
         if self.queue_mode:
             self._pending.append(int(v))
             return
-        if self.config.deferred_verification:
+        # The grid matcher verifies synchronously, as the JAX package does.
+        if self.config.deferred_verification \
+                and self.config.icp.matcher != "grid":
             rec = self._dispatch_verification(int(v))
             if rec is not None:
                 self._deferred.append(rec)
@@ -320,6 +325,32 @@ class LoopCloser:
                         "max_iterations=%d with smooth_length=%d: most "
                         "closures will be rejected as max_iter_reached",
                         cfg.max_iterations, max(1, cfg.smooth_length))
+
+    # -- setters -------------------------------------------------------------
+
+    def set_topological_distance_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config, topo_dist_threshold=v)
+
+    def set_geometrical_distance_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config, geom_dist_threshold=v)
+
+    def set_overlap_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config, overlap_threshold=v)
+
+    def set_residual_error_threshold(self, v: float) -> None:
+        self.config = dataclasses.replace(self.config,
+                                          residual_error_threshold=v)
+
+    def set_candidate_local_map_max_size(self, size: int) -> None:
+        self.candidate_local_map = LocalMap(size)
+
+    def set_icp_config(self, path: str) -> None:
+        """Load the verification ICP YAML (rejected where its convergence
+        checker could never fire)."""
+        from .config import load_icp_config
+        icp = load_icp_config(path)
+        self._validate_verification_profile(icp)
+        self.config = dataclasses.replace(self.config, icp=icp)
 
     def check_icp_result(self, result: ICPResult, residual: float) -> bool:
         if result.diverged is not None and bool(result.diverged):

@@ -3,7 +3,8 @@ outlier-weigh -> minimize -> check, with the iteration cap, the smoothed
 differential checker, an optional coarse stage, optional Anderson
 acceleration, the bound checker and a NaN guard. The iterate loop runs on
 the host (one device sync per iteration for the convergence test);
-matching goes through K1.
+matching goes through K1, or the voxel-hash grid (``ops/gridknn.py``)
+under ``matcher="grid"``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ..cloud import Cloud
 from . import filters as F
 from . import minimizer as M
 from . import outlier as O
+from .gridknn import GridIndex, build_grid_index, grid_knn
 from .knn import Matches, knn
 
 log = logging.getLogger("pgslam_tpu_torch.icp")
@@ -52,12 +54,6 @@ class ICPConfig:
     anderson_m: int = 0
     reading_filters: Tuple = ()
     reference_filters: Tuple = ()
-
-
-def check_supported(cfg: ICPConfig) -> None:
-    """Raise for the settings whose paths are not ported yet."""
-    if cfg.matcher == "grid":
-        raise NotImplementedError("matcher='grid' is not ported yet")
 
 
 def eps_dead_zone(cfg: ICPConfig) -> Optional[str]:
@@ -181,8 +177,14 @@ def fetch_async(vec: torch.Tensor) -> HostFetch:
     return HostFetch(vec)
 
 
-def match_clouds(points, mask, reference: Cloud, cfg: ICPConfig) -> Matches:
-    check_supported(cfg)
+def match_clouds(points, mask, reference: Cloud, cfg: ICPConfig,
+                 index: Optional[GridIndex] = None) -> Matches:
+    """The grid matcher through ``index`` where the config asks for it and
+    an index is given; K1 otherwise (every other matcher, and the grid
+    matcher without an index, as the JAX package falls back to its exact
+    brute force)."""
+    if cfg.matcher == "grid" and index is not None:
+        return grid_knn(points, mask, index, k=cfg.knn)
     return knn(points, mask, reference.points, reference.mask, k=cfg.knn)
 
 
@@ -197,15 +199,16 @@ def build_error_elements(points, reference: Cloud, matches: Matches,
                            weights=weights.reshape(-1), normals=normals)
 
 
-def _match_and_weigh(points, mask, reference, cfg):
-    matches = match_clouds(points, mask, reference, cfg)
+def _match_and_weigh(points, mask, reference, cfg, index=None):
+    matches = match_clouds(points, mask, reference, cfg, index)
     return matches, O.compute_weights(cfg.outlier, matches, mask)
 
 
-def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig):
+def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig, index):
     """One match -> weigh -> minimize step: (delta @ T, delta)."""
     pts = se3.apply(T, pts_in.points)
-    matches, weights = _match_and_weigh(pts, pts_in.mask, reference, cfg)
+    matches, weights = _match_and_weigh(pts, pts_in.mask, reference, cfg,
+                                        index)
     elems = build_error_elements(pts, reference, matches, weights, cfg)
     if cfg.error == "point_to_plane":
         delta = M.point_to_plane(elems)
@@ -250,7 +253,7 @@ class _Anderson:
 
 
 def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
-              max_iterations: int):
+              max_iterations: int, index):
     L = max(1, cfg.smooth_length)
     dts = torch.full((L,), float("inf"), device=T0.device)
     drs = dts.clone()
@@ -258,7 +261,7 @@ def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
           if cfg.anderson_m and cfg.anderson_m > 1 else None)
     T, it, converged = T0, 0, False
     while it < max_iterations and not converged:
-        T_plain, delta = _icp_step(reading, reference, T, cfg)
+        T_plain, delta = _icp_step(reading, reference, T, cfg, index)
         if aa is not None:
             T_new = aa(T, T_plain, it)
             delta = T_new @ se3.inverse(T)
@@ -293,21 +296,22 @@ def bound_check(T, T0, cfg: ICPConfig):
 
 
 def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
-             cfg: ICPConfig) -> ICPResult:
-    """The full ICP loop on pre-filtered clouds."""
-    check_supported(cfg)
+             cfg: ICPConfig, index: Optional[GridIndex] = None) -> ICPResult:
+    """The full ICP loop on pre-filtered clouds; ``index`` is the
+    reference's grid index for ``matcher="grid"``."""
     T_start = T_init.to(torch.float32)
     T0 = T_start
     if cfg.coarse_div and cfg.coarse_div > 1:
         T0, _, _ = _icp_loop(decimate(reading, cfg.coarse_div), reference,
-                             T0, cfg, cfg.coarse_iterations)
+                             T0, cfg, cfg.coarse_iterations, index)
     T, iterations, converged = _icp_loop(reading, reference, T0, cfg,
-                                         cfg.max_iterations)
+                                         cfg.max_iterations, index)
     T, diverged = bound_check(T, T_start, cfg)
     converged = torch.tensor(converged, device=T.device) & ~diverged
 
     pts = se3.apply(T, reading.points)
-    matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg)
+    matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg,
+                                        index)
     elems = build_error_elements(pts, reference, matches, weights, cfg)
     iters = torch.tensor(iterations, dtype=torch.int32, device=T.device)
     return ICPResult(
@@ -320,7 +324,8 @@ def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
 
 def compute_overlap(reading: Cloud, reference: Cloud, T: torch.Tensor,
                     cfg: ICPConfig) -> torch.Tensor:
-    """Partial-ICP overlap probe: match + weigh at T, no minimization."""
+    """Partial-ICP overlap probe: match + weigh at T, no minimization
+    (through K1 under every matcher, as the JAX package's probe)."""
     pts = se3.apply(T, reading.points)
     _, weights = _match_and_weigh(pts, reading.mask, reference, cfg)
     return M.overlap(weights, reading.count())
@@ -328,7 +333,8 @@ def compute_overlap(reading: Cloud, reference: Cloud, T: torch.Tensor,
 
 def compute_residual(reading: Cloud, reference: Cloud, T: torch.Tensor,
                      cfg: ICPConfig) -> torch.Tensor:
-    """Residual error of the reading matched at T."""
+    """Residual error of the reading matched at T (through K1 under every
+    matcher, as the JAX package's residual pass)."""
     pts = se3.apply(T, reading.points)
     matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg)
     elems = build_error_elements(pts, reference, matches, weights, cfg)
@@ -346,17 +352,27 @@ def reference_chain(cfg: ICPConfig, reference: Cloud) -> Tuple:
     return chain
 
 
+def reference_index(reference: Cloud, cfg: ICPConfig) -> Optional[GridIndex]:
+    """The grid index of a prepared reference under ``matcher="grid"``,
+    else None."""
+    if cfg.matcher != "grid":
+        return None
+    return build_grid_index(reference.points, reference.mask,
+                            cell_size=cfg.grid_cell_size,
+                            bucket_cap=cfg.grid_bucket_cap)
+
+
 class ICPEngine:
     """Persistent pre-processed reference map across calls."""
 
     def __init__(self, config: ICPConfig = ICPConfig()):
-        check_supported(config)
         reason = eps_dead_zone(config)
         if reason is not None:
             log.warning("[ICP] convergence checker can never fire (%s)",
                         reason)
         self.config = config
         self._reference: Optional[Cloud] = None
+        self.index: Optional[GridIndex] = None
 
     @property
     def has_map(self) -> bool:
@@ -371,7 +387,10 @@ class ICPEngine:
                              reference)
 
     def set_map(self, reference: Cloud) -> None:
-        self._reference = self.prepare_reference(reference)
+        """Prepare and hold the reference, with its grid index under
+        ``matcher="grid"``."""
+        self._reference = ref = self.prepare_reference(reference)
+        self.index = reference_index(ref, self.config)
 
     def prepare_reading(self, reading: Cloud) -> Cloud:
         return F.apply_chain(self.config.reading_filters, reading)
@@ -380,4 +399,4 @@ class ICPEngine:
         if self._reference is None:
             raise RuntimeError("ICPEngine: set_map() must be called first")
         return icp_core(self.prepare_reading(reading), self._reference,
-                        T_init, self.config)
+                        T_init, self.config, self.index)

@@ -39,7 +39,7 @@ import functools
 import torch
 
 INF = float("inf")
-MAX_K = 8
+MAX_K = 16
 # The kernel's layouts (csrc/knn.cu::pgs_knn): slices of the references
 # (the cluster size) and threads a CTA, one query each; a slice the layout
 # chooses holds at least MIN_SLICE references.
@@ -57,6 +57,12 @@ class Matches:
     @property
     def k(self) -> int:
         return self.dists2.shape[-1]
+
+
+def check_k(k: int) -> None:
+    """Raise for a k the kernel has no instance of (1..MAX_K)."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k={k} outside 1..{MAX_K}")
 
 
 def sq_norm(p: torch.Tensor) -> torch.Tensor:
@@ -77,6 +83,7 @@ def sq_dists(q: torch.Tensor, r: torch.Tensor, q_sq=None, r_sq=None):
 def knn_plain(query, query_mask, reference, reference_mask, k: int = 1,
               tile_query: int = 1024) -> Matches:
     """Plain PyTorch version of K1 (query-tiled to bound memory)."""
+    check_k(k)
     nq, nr = query.shape[0], reference.shape[0]
     r_sq = sq_norm(reference)
     out_d, out_i = [], []
@@ -149,8 +156,7 @@ def k1_layout(nq: int, nr: int, k: int, sm_count: int, *, slices=None,
     ``slices`` and ``threads`` force their values (layout timings and
     tests; the result does not depend on them, and a forced S may leave
     slices short or empty). Raises on values the kernel does not take."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K}")
+    check_k(k)
     for name, v, allowed in (("slices", slices, SLICES),
                              ("threads", threads, THREADS)):
         if v is not None and v not in allowed:
@@ -176,8 +182,7 @@ def knn(query, query_mask, reference, reference_mask, k: int = 1,
     """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors. ``layout`` overrides :func:`k1_layout`'s choice on
     the card (the result does not depend on it)."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside 1..{MAX_K}")
+    check_k(k)
     if query.device.type == "cpu":
         return knn_plain(query, query_mask, reference, reference_mask, k)
     if query.device.type != "cuda":

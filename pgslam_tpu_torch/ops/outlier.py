@@ -1,5 +1,7 @@
 """Outlier filters: per-match weights in [0, 1]. Counterpart of
-:mod:`pgslam_tpu.ops.outlier` for ``TrimmedDist`` and ``MaxDist``."""
+:mod:`pgslam_tpu.ops.outlier`: the same five filters, fields and
+defaults. Every filter keeps or drops a match (weight 1 or 0); a chain
+multiplies them, and invalid matches get 0."""
 
 from __future__ import annotations
 
@@ -23,6 +25,34 @@ class MaxDist:
     max_dist: float = 1.0
 
 
+@dataclasses.dataclass(frozen=True)
+class MedianDist:
+    """Binary weight: distance <= ``factor`` * median distance."""
+    factor: float = 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SurfaceNormalOutlier:
+    """Keep a match whose reading and reference normals agree:
+    ``|cos angle| >= cos(max_angle)``. Passes everything through unless
+    both normals are given (the ICP loop gives none, as the JAX
+    package's)."""
+    max_angle: float = 1.0  # radians
+
+
+@dataclasses.dataclass(frozen=True)
+class VarTrimmedDist:
+    """Trimmed distance with the trim ratio chosen per call by
+    minimizing Chetverikov's FTMP criterion ``psi(r) = e(r) / r^lam``
+    over ``r`` in ``[min_ratio, max_ratio]``, ``e(r)`` the mean squared
+    distance of the closest ``r`` fraction."""
+    min_ratio: float = 0.2
+    max_ratio: float = 0.99
+    lam: float = 2.0
+
+
+OUTLIERS = (TrimmedDist, MaxDist, MedianDist, SurfaceNormalOutlier,
+            VarTrimmedDist)
 OutlierChain = Tuple
 
 
@@ -33,28 +63,74 @@ def kth_keep(ratio: float, n_valid: torch.Tensor) -> torch.Tensor:
                       * n_valid.to(torch.float32))
 
 
+def _sorted_valid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The distances flattened and sorted, invalid ones as +inf last."""
+    return torch.sort(torch.where(valid, d2, float("inf")).reshape(-1)
+                      ).values
+
+
 def trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
                       ratio: float) -> torch.Tensor:
     """Exact value of the ``ceil(ratio * n_valid)``-th smallest valid
     distance (the first one when no distance is valid)."""
-    flat = torch.where(valid, d2, float("inf")).reshape(-1)
+    s = _sorted_valid(d2, valid)
     kth = kth_keep(ratio, valid.sum()).to(torch.int64) - 1
-    kth = torch.clamp(kth, 0, flat.shape[0] - 1)
-    return torch.sort(flat).values[kth]
+    return s[torch.clamp(kth, 0, s.shape[0] - 1)]
+
+
+def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The valid distances' median: the sorted entry at
+    ``int(0.5 * max(n_valid, 1))``."""
+    s = _sorted_valid(d2, valid)
+    n_valid = torch.clamp(valid.sum(), min=1).to(torch.float32)
+    idx = (0.5 * n_valid).to(torch.int64)
+    return s[torch.clamp(idx, 0, s.shape[0] - 1)]
+
+
+def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
+                          cfg: VarTrimmedDist) -> torch.Tensor:
+    """The distance of the FTMP-optimal trim: psi evaluated at every
+    count k of the sorted distances inside the ratio band, and the k-th
+    smallest distance at its (first) minimum."""
+    s = _sorted_valid(d2, valid)
+    n = s.shape[0]
+    n_valid = torch.clamp(valid.sum(), min=1).to(torch.float32)
+    ks = torch.arange(1, n + 1, dtype=torch.float32, device=d2.device)
+    r = ks / n_valid
+    e = torch.cumsum(torch.where(torch.isfinite(s), s, 0.0), 0) / ks
+    psi = e / torch.clamp(r, min=1e-9) ** cfg.lam
+    in_band = (r >= cfg.min_ratio) & (r <= cfg.max_ratio)
+    psi = torch.where(in_band, psi, float("inf"))
+    return s[torch.argmin(psi)]
 
 
 def compute_weights(chain: OutlierChain, matches: Matches,
-                    query_mask: torch.Tensor) -> torch.Tensor:
-    """Compose the filters multiplicatively; invalid matches get 0."""
+                    query_mask: torch.Tensor, reading_normals=None,
+                    reference_normals=None) -> torch.Tensor:
+    """Compose the filters multiplicatively; invalid matches get 0.
+    ``reference_normals`` are those of the matched references
+    (``[Nq, k, 3]``), for ``SurfaceNormalOutlier``."""
     d2 = matches.dists2
     valid = torch.isfinite(d2) & query_mask[:, None]
     w = valid.to(torch.float32)
     for cfg in chain:
         if isinstance(cfg, TrimmedDist):
-            w = w * (d2 <= trimmed_threshold(d2, valid, cfg.ratio)).float()
+            keep = d2 <= trimmed_threshold(d2, valid, cfg.ratio)
         elif isinstance(cfg, MaxDist):
-            w = w * (d2 <= cfg.max_dist * cfg.max_dist).float()
+            keep = d2 <= cfg.max_dist * cfg.max_dist
+        elif isinstance(cfg, VarTrimmedDist):
+            keep = d2 <= var_trimmed_threshold(d2, valid, cfg)
+        elif isinstance(cfg, MedianDist):
+            keep = d2 <= cfg.factor * cfg.factor * median_threshold(d2,
+                                                                    valid)
+        elif isinstance(cfg, SurfaceNormalOutlier):
+            if reading_normals is None or reference_normals is None:
+                continue
+            cos = torch.abs((reading_normals[:, None, :]
+                             * reference_normals).sum(-1))
+            keep = cos >= torch.cos(torch.tensor(
+                cfg.max_angle, dtype=torch.float32, device=cos.device))
         else:
-            raise NotImplementedError(
-                f"outlier filter {type(cfg).__name__} is not ported yet")
+            raise TypeError(f"unknown outlier filter {type(cfg)}")
+        w = w * keep.to(torch.float32)
     return w

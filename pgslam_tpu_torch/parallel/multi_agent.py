@@ -102,7 +102,8 @@ class MultiAgentSlam:
         prepped, readings_all = prepare_input_batched(
             lcfg.input_filters, lcfg.keyframe_cloud_capacity, raw,
             torch.as_tensor(T_rs, device=self.device),
-            reading_chain=lcfg.icp.reading_filters)
+            reading_chain=lcfg.icp.reading_filters,
+            seeds=[loc.count for loc in self.localizers])
         preps = [loc.prepare_scan(T_world_robot[b], T_rs[b], raw[b],
                                   prepared=prepped[b],
                                   reading=readings_all[b])

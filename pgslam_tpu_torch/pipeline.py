@@ -34,7 +34,7 @@ from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .localizer import Localizer, LocalizerConfig
 from .loopcloser import LoopCloser, LoopCloserConfig
 from .optimizer import Optimizer, OptimizerConfig
-from .slam import SlamConfig
+from .slam import SlamConfig, assemble_global_map
 
 log = logging.getLogger("pgslam_tpu_torch.pipeline")
 
@@ -379,3 +379,10 @@ class PoseGraphSlamMT:
 
     def get_local_map_in_world_frame(self):
         return self.localizer.get_local_map_in_world_frame()
+
+    def global_map(self, max_points_per_keyframe: int = 0) -> np.ndarray:
+        """``PoseGraphSlam.global_map`` of the graph as it stands, read
+        under the graph lock."""
+        with self.map_manager.get_graph_lock():
+            return assemble_global_map(self.map_manager.get_graph(),
+                                       max_points_per_keyframe)

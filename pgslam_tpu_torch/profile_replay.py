@@ -1,6 +1,6 @@
 """Where a replay's or a large-graph optimize's time goes on the GPU.
 
-    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|corridor_64k_lag2|loop_lag2|loop_stream4|pgo_1k|pgo_16k] [--trace DIR]
+    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|long|yaml_clover|p2plane|grid|corridor_64k_lag2|loop_lag2|loop_stream4|pgo_1k|pgo_16k] [--trace DIR]
 
 Runs the replay (or one ``optimize_pose_graph`` of the pose-graph problem
 under ``solver="pcg_pallas"`` and the default ``PGOConfig``: the LM loop

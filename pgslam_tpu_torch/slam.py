@@ -20,6 +20,24 @@ from .loopcloser import LoopCloser, LoopCloserConfig
 from .optimizer import Optimizer, OptimizerConfig
 
 
+def assemble_global_map(graph, max_points_per_keyframe: int = 0
+                        ) -> np.ndarray:
+    """The body of :meth:`PoseGraphSlam.global_map` for ``graph``."""
+    parts = []
+    for v in range(graph.n_vertices):
+        cloud = graph.clouds[v]
+        if cloud is None:
+            continue
+        pts = cloud.points[cloud.mask].cpu().numpy()
+        if max_points_per_keyframe and len(pts) > max_points_per_keyframe:
+            pts = pts[::len(pts) // max_points_per_keyframe + 1]
+        T = np.asarray(graph.optimized_poses[v], dtype=np.float32)
+        parts.append(pts @ T[:3, :3].T + T[:3, 3])
+    if not parts:
+        return np.zeros((0, 3), np.float32)
+    return np.concatenate(parts, axis=0)
+
+
 @dataclasses.dataclass(frozen=True)
 class SlamConfig:
     localizer: LocalizerConfig = LocalizerConfig()
@@ -44,6 +62,52 @@ class PoseGraphSlam:
                                    device=self.device)
         self.map_manager.set_localizer(self.localizer)
         self.map_manager.set_loop_closer(self.loop_closer)
+
+    @classmethod
+    def from_yaml(cls, path: str, device=None) -> "PoseGraphSlam":
+        """Build from one nested SLAM YAML (``config.load_slam_config``)."""
+        from .config import load_slam_config
+        return cls(load_slam_config(path), device=device)
+
+    @classmethod
+    def from_config_paths(cls, localizer_icp_config: str,
+                          localizer_input_filters_config: str,
+                          loop_closer_icp_config: str,
+                          device=None) -> "PoseGraphSlam":
+        """The reference constructor's three YAML paths: the localizer's
+        ICP pipeline, its input filters, the loop closer's ICP pipeline."""
+        from .config import load_icp_config, load_input_filters
+        cfg = SlamConfig(
+            localizer=LocalizerConfig(
+                icp=load_icp_config(localizer_icp_config),
+                input_filters=load_input_filters(
+                    localizer_input_filters_config)),
+            loop_closer=LoopCloserConfig(
+                icp=load_icp_config(loop_closer_icp_config)))
+        return cls(cfg, device=device)
+
+    def set_icp_config(self, path: str,
+                       localizer_icp_config: Optional[str] = None,
+                       loop_closer_icp_config: Optional[str] = None) -> None:
+        """One ICP YAML for both the localizer and the loop closer, or the
+        reference's three paths (input filters, localizer ICP, loop-closer
+        ICP), each handed to its component."""
+        if localizer_icp_config is None and loop_closer_icp_config is None:
+            self.localizer.set_icp_config(path)
+            self.loop_closer.set_icp_config(path)
+            return
+        if localizer_icp_config is None or loop_closer_icp_config is None:
+            raise TypeError("set_icp_config takes either one ICP YAML path "
+                            "or the reference's three paths (input filters, "
+                            "localizer ICP, loop-closer ICP)")
+        self.localizer.set_input_filters_config(path)
+        self.localizer.set_icp_config(localizer_icp_config)
+        self.loop_closer.set_icp_config(loop_closer_icp_config)
+
+    SetIcpConfig = set_icp_config
+
+    def set_input_filters_config(self, path: str) -> None:
+        self.localizer.set_input_filters_config(path)
 
     def add_data(self, timestamp, world_frame_id: str, T_world_robot,
                  T_robot_sensor, cloud: Union[Cloud, np.ndarray]) -> None:
@@ -88,6 +152,16 @@ class PoseGraphSlam:
         self.flush()
         g = self.map_manager.get_graph()
         return g.optimized_poses[:g.n_vertices].copy()
+
+    def global_map(self, max_points_per_keyframe: int = 0) -> np.ndarray:
+        """Every keyframe cloud in the world frame at its optimized pose,
+        masked points dropped, as one ``[N, 3]`` float32 array; at most
+        every ``len // max_points_per_keyframe + 1``-th point of a
+        keyframe with more than ``max_points_per_keyframe``. Export with
+        :func:`pgslam_tpu_torch.io.save_cloud_ply`."""
+        self.flush()
+        return assemble_global_map(self.map_manager.get_graph(),
+                                   max_points_per_keyframe)
 
     def n_loop_edges(self) -> int:
         self.flush()

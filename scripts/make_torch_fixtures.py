@@ -1,16 +1,30 @@
-"""Record the JAX package's runs of the golden loop on its deferred and
-streaming paths, which the PyTorch port is held to where JAX is not
-installed (``chip_smoke.py``'s deferred path):
+"""Record the JAX package's runs that the PyTorch port is held to where
+JAX is not installed (``chip_smoke.py``):
 
-* ``tests/fixtures/golden_replay_lag2.npz``: ``sync_lag=2`` with deferred
-  loop-closure verification (the deployable live-loop profile);
-* ``tests/fixtures/golden_replay_stream4.npz``: ``micro_batch=4``.
+* ``tests/fixtures/golden_replay_lag2.npz``: the golden loop at
+  ``sync_lag=2`` with deferred loop-closure verification (the deployable
+  live-loop profile);
+* ``tests/fixtures/golden_replay_stream4.npz``: the loop at
+  ``micro_batch=4``;
+* ``tests/fixtures/golden_replay_yaml.npz``: ``examples/slam_config.yaml``
+  (``PoseGraphSlam.from_yaml``) over the first 120 scans of the long
+  replay's clover at 2048 points a scan;
+* ``tests/fixtures/golden_replay_p2plane.npz``: the same scans under
+  ``from_config_paths`` with ``examples/icp_point_to_plane.yaml`` and the
+  input filters of ``slam_config.yaml`` (its random draws are JAX's own;
+  the port is held to the truth, in an envelope around this run's error);
+* ``tests/fixtures/golden_replay_grid.npz``: the golden loop on the grid
+  matcher (``GridMatcher``: auto cell size, 8 ids a bucket);
+* ``tests/fixtures/golden_replay_long_eval.npz``: ATE and RPE of
+  ``golden_replay_long.npz``'s per-scan poses to the clover's truth,
+  computed by ``pgslam_tpu.eval``, and that run's per-scan local-map
+  compositions and registration overlaps.
 
-Each holds the per-scan poses (the last one the flushed pose), the
-keyframe trajectory, and the keyframe, loop-edge, swap and optimizer-run
-counts. Run on the CPU backend, as the test tier runs JAX:
+Each replay fixture holds the per-scan poses (the last one the flushed
+pose), the keyframe trajectory, and the keyframe, loop-edge, swap and
+optimizer-run counts. Run on the CPU backend, as the test tier runs JAX:
 
-    python scripts/make_torch_fixtures.py [lag2] [stream4]
+    python scripts/make_torch_fixtures.py [lag2] [stream4] [yaml] [p2plane] [grid] [long_eval]
 
 The existing fixtures are not touched. Commit the result.
 """
@@ -29,9 +43,13 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 
-from golden_replay import _replay, golden_config, golden_sequence  # noqa: E402
+from golden_replay import (FIXTURE_LONG, _replay, golden_config,  # noqa: E402
+                           golden_sequence, long_sequence)
 
 FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+SLAM_YAML = os.path.join(ROOT, "examples", "slam_config.yaml")
+P2PLANE_YAML = os.path.join(ROOT, "examples", "icp_point_to_plane.yaml")
+YAML_CLOVER_SCANS = 120
 
 
 def lag2_run():
@@ -49,11 +67,103 @@ def stream4_run():
         cfg, localizer=dataclasses.replace(cfg.localizer, micro_batch=4)))
 
 
+def yaml_clover_sequence():
+    """The first YAML_CLOVER_SCANS scans of the long replay's clover at
+    2048 points a scan (slam_config.yaml's sensorCloudCapacity)."""
+    from pgslam_tpu.datasets import clover_sequence
+    seq = clover_sequence(np.random.default_rng(5), n_scans=300,
+                          scan_points=2048, petals=3, radius=8.0,
+                          noise=0.002, odom_drift=0.002)
+    return tuple(part[:YAML_CLOVER_SCANS] for part in seq)
+
+
+def yaml_run():
+    from pgslam_tpu.slam import PoseGraphSlam
+    return _replay(yaml_clover_sequence(),
+                   PoseGraphSlam.from_yaml(SLAM_YAML).config)
+
+
+def p2plane_run():
+    import tempfile
+
+    import yaml
+    from pgslam_tpu.slam import PoseGraphSlam
+    with open(SLAM_YAML) as fh:
+        chain = yaml.safe_load(fh)["localizer"]["inputFilters"]
+    with tempfile.TemporaryDirectory() as tmp:
+        filters = os.path.join(tmp, "input_filters.yaml")
+        with open(filters, "w") as fh:
+            yaml.safe_dump(chain, fh)
+        cfg = PoseGraphSlam.from_config_paths(P2PLANE_YAML, filters,
+                                              P2PLANE_YAML).config
+    return _replay(yaml_clover_sequence(), cfg)
+
+
+def grid_config():
+    cfg = golden_config()
+    icp = dataclasses.replace(cfg.localizer.icp, matcher="grid",
+                              grid_cell_size=0.0, grid_bucket_cap=8)
+    return dataclasses.replace(
+        cfg, localizer=dataclasses.replace(cfg.localizer, icp=icp),
+        loop_closer=dataclasses.replace(cfg.loop_closer, icp=icp))
+
+
+def grid_run():
+    return _replay(golden_sequence(), grid_config())
+
+
 RUNS = {"lag2": (lag2_run, "golden_replay_lag2.npz"),
-        "stream4": (stream4_run, "golden_replay_stream4.npz")}
+        "stream4": (stream4_run, "golden_replay_stream4.npz"),
+        "yaml": (yaml_run, "golden_replay_yaml.npz"),
+        "p2plane": (p2plane_run, "golden_replay_p2plane.npz"),
+        "grid": (grid_run, "golden_replay_grid.npz")}
+
+
+def long_decisions():
+    """The JAX package's single-threaded long replay (``_replay``'s loop)
+    with each scan's local-map composition and the overlap of its
+    registration (NaN for the first scan, which has none); its per-scan
+    poses must be golden_replay_long.npz's."""
+    from pgslam_tpu.slam import PoseGraphSlam
+    scans, odom, _ = long_sequence()
+    slam = PoseGraphSlam(golden_config())
+    T_rs = np.eye(4, dtype=np.float32)
+    per_scan, comps, overlaps = [], [], []
+    for i, (scan, T_odom) in enumerate(zip(scans, odom)):
+        slam.add_data(i, "world", T_odom, T_rs, scan)
+        per_scan.append(slam.localizer.T_world_robot.copy())
+        comps.append(slam.localizer.local_map.get_composition().as_list())
+        last = slam.localizer.last_result
+        overlaps.append(np.nan if last is None else float(last.overlap))
+    if not np.array_equal(np.stack(per_scan),
+                          np.load(FIXTURE_LONG)["per_scan_poses"]):
+        raise RuntimeError("the long replay no longer gives its fixture")
+    width = max(len(c) for c in comps)
+    return (np.array([c + [-1] * (width - len(c)) for c in comps], np.int32),
+            np.array(overlaps, np.float32))
+
+
+def record_long_eval() -> str:
+    """ATE (after the rigid alignment) and RPE (delta 1) of the long
+    fixture's per-scan poses to the sequence's truth, and the run's
+    per-scan decisions (:func:`long_decisions`)."""
+    from pgslam_tpu.eval import ate_rmse, rpe
+    per_scan = np.load(FIXTURE_LONG)["per_scan_poses"]
+    truth = np.stack(long_sequence()[2])
+    rpe_t, rpe_r = rpe(per_scan, truth)
+    compositions, overlaps = long_decisions()
+    path = os.path.join(FIXTURES, "golden_replay_long_eval.npz")
+    np.savez_compressed(path, ate_rmse=ate_rmse(per_scan, truth),
+                        rpe_trans=rpe_t, rpe_rot=rpe_r,
+                        compositions=compositions, overlaps=overlaps)
+    print(f"wrote {path}: ate {ate_rmse(per_scan, truth)}, rpe {rpe_t} m "
+          f"{rpe_r} rad")
+    return path
 
 
 def record(name: str) -> str:
+    if name == "long_eval":
+        return record_long_eval()
     run, file = RUNS[name]
     per_scan, trajectory, stats = run()
     path = os.path.join(FIXTURES, file)
@@ -69,7 +179,7 @@ def record(name: str) -> str:
 def main():
     if jax.default_backend() != "cpu":
         raise SystemExit(f"JAX is not on the CPU: {jax.devices()}")
-    for name in sys.argv[1:] or list(RUNS):
+    for name in sys.argv[1:] or [*RUNS, "long_eval"]:
         record(name)
 
 

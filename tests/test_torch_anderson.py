@@ -3,8 +3,6 @@ the port against pgslam_tpu on the same numpy inputs: ``icp_core``'s AA
 loop (``body_aa``) and K2's plain AA stage (``run_stage_aa``). The CUDA
 stage is held against the plain one in tests/test_torch_gpu.py."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,7 +20,7 @@ from pgslam_tpu.ops.icp import _match_and_weigh, build_error_elements
 from pgslam_tpu.ops.icp import icp_core as j_icp_core
 from pgslam_tpu_torch import se3 as tse3
 from pgslam_tpu_torch.cloud import make_cloud as tmake
-from pgslam_tpu_torch.convert import config_from_dict
+from pgslam_tpu_torch.convert import config_from_dict, config_to_dict
 from pgslam_tpu_torch.ops.icp import ICPConfig as TICPConfig
 from pgslam_tpu_torch.ops.icp import ICPEngine as TEngine
 from pgslam_tpu_torch.ops.icp import _Anderson
@@ -58,7 +56,7 @@ def _configs(error, m):
                       trans_eps=1e-4, rot_eps=1e-4, anderson_m=m,
                       reference_filters=(JF.SurfaceNormal(knn=8),)
                       if error == "point_to_plane" else ())
-    return jcfg, config_from_dict(TICPConfig, dataclasses.asdict(jcfg))
+    return jcfg, config_from_dict(TICPConfig, config_to_dict(jcfg))
 
 
 _PLAIN_ITERATIONS = {}

@@ -23,7 +23,7 @@ from pgslam_tpu_torch import fleet_problems as FP
 from pgslam_tpu_torch import replays
 from pgslam_tpu_torch.cloud import make_cloud as tmake
 from pgslam_tpu_torch.cloud import stack_clouds as tstack
-from pgslam_tpu_torch.convert import config_from_dict
+from pgslam_tpu_torch.convert import config_from_dict, config_to_dict
 from pgslam_tpu_torch.graph.pose_graph import LOOP_CONSTRAINT
 from pgslam_tpu_torch.ops.icp import ICPConfig as TICPConfig
 from pgslam_tpu_torch.ops.icp import ICPEngine as TEngine
@@ -57,8 +57,7 @@ def test_fleet_configs_equal_jax():
     import bench
     for ours, theirs in ((FP.fleet_config(), small_config()),
                          (FP.batched_icp_config(), bench.batched_icp_config())):
-        assert ours == config_from_dict(type(ours),
-                                        dataclasses.asdict(theirs))
+        assert ours == config_from_dict(type(ours), config_to_dict(theirs))
 
 
 def test_config5_sequence_equals_jax():
@@ -140,7 +139,7 @@ def _batch(error="point_to_plane", coarse=0):
               coarse_div=coarse, coarse_iterations=4)
     jcfg = JICPConfig(outlier=(JO.TrimmedDist(0.9), JO.MaxDist(1.0)),
                       reference_filters=(JF.SurfaceNormal(knn=8),), **kw)
-    tcfg = config_from_dict(TICPConfig, dataclasses.asdict(jcfg))
+    tcfg = config_from_dict(TICPConfig, config_to_dict(jcfg))
     je, te = JEngine(jcfg), TEngine(tcfg)
     jr, jm, tr, tm = [], [], [], []
     for s in seeds:

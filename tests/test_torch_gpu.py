@@ -719,3 +719,59 @@ def test_k2_against_one_shared_map_matches_b1(cuda):
         got, _ = unpack_result(packed[j].cpu().numpy())
         np.testing.assert_array_equal(got.T, one.T[0].cpu().numpy())
         assert int(got.iterations) == int(one.iterations[0])
+
+
+@pytest.mark.parametrize("k", [10, 16])
+@pytest.mark.parametrize("nq,nr", [(3072, 3072), (1024, 3072), (700, 5000)])
+def test_k1_large_k_forced_layouts_match_plain(cuda, nq, nr, k):
+    """K1 at k = 10 (the point-to-plane YAML's normals) and k = 16 at every
+    forced layout: knn_plain's ids and finite pattern, d2 within 1e-5 of
+    its scale."""
+    q, qm, r, rm = _k1_inputs(cuda, nq, nr, seed=k)
+    mp = knn_plain(q, qm, r, rm, k=k)
+    fin = torch.isfinite(mp.dists2)
+    scale = max(1.0, float(mp.dists2[fin].abs().max()))
+    for S in (1, 2, 4, 8, 16):
+        for T in THREADS:
+            lay = k1_layout(nq, nr, k, 132, slices=S, threads=T)
+            mk = knn(q, qm, r, rm, k=k, layout=lay)
+            torch.cuda.synchronize()
+            assert torch.equal(mk.ids, mp.ids), lay
+            assert torch.equal(torch.isfinite(mk.dists2), fin), lay
+            assert float((mk.dists2[fin] - mp.dists2[fin]).abs().max()) \
+                <= 1e-5 * scale, lay
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_grid_knn_on_the_card_equals_the_cpu(cuda, k):
+    """The grid matcher is plain PyTorch on either device: its index and
+    matches on the card equal the CPU's bit for bit."""
+    from pgslam_tpu_torch.ops.gridknn import build_grid_index, grid_knn
+    q, qm, r, rm = _k1_inputs(cuda, 2000, 6000, seed=11)
+    cpu = [t.cpu() for t in (q, qm, r, rm)]
+    gi = build_grid_index(r, rm, cell_size=0.8, bucket_cap=8)
+    ci = build_grid_index(cpu[2], cpu[3], cell_size=0.8, bucket_cap=8)
+    assert torch.equal(gi.table.cpu(), ci.table)
+    assert int(gi.overflow_count) == int(ci.overflow_count)
+    gm, cm = grid_knn(q, qm, gi, k=k), grid_knn(cpu[0], cpu[1], ci, k=k)
+    assert torch.equal(gm.ids.cpu(), cm.ids)
+    assert torch.equal(gm.dists2.cpu(), cm.dists2)
+
+
+def test_from_yaml_on_the_card_launches_k1_and_k3(cuda):
+    """examples/slam_config.yaml through from_yaml on the card: the clover
+    replay's first closure is optimized by K3, and every match is K1's."""
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.slam import PoseGraphSlam
+    slam = PoseGraphSlam.from_yaml(replays.SLAM_YAML)
+    assert slam.device.type == "cuda"
+    assert slam.config == replays.yaml_config()
+    k1, k3 = knn.launches, lm_optimize.launches
+    scans, odom, _ = replays.yaml_clover_sequence()
+    eye = np.eye(4, dtype=np.float32)
+    for i, (scan, T) in enumerate(zip(scans, odom)):
+        slam.add_data(i, "world", T, eye, scan)
+    torch.cuda.synchronize()
+    assert slam.n_loop_edges() >= 1
+    assert knn.launches > k1 and lm_optimize.launches > k3

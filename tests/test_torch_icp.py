@@ -177,7 +177,20 @@ def test_icp_core_matches_jax(error, coarse):
 
 
 def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError):
-        TEngine(TICPConfig(matcher="grid"))
-    # Anderson acceleration is ported (tests/test_torch_anderson.py).
+    """Every ICP setting of the JAX package is ported: the grid matcher
+    (tests/test_torch_gridknn.py) indexes its map, and Anderson
+    acceleration builds (tests/test_torch_anderson.py). What the port
+    does not know still raises: a filter or outlier config of another
+    type."""
+    engine = TEngine(TICPConfig(matcher="grid", grid_cell_size=0.5))
+    engine.set_map(tmake(np.random.default_rng(0).uniform(
+        -2, 2, (64, 3)).astype(np.float32)))
+    assert engine.index is not None and engine.index.bucket_cap == 8
     TEngine(TICPConfig(anderson_m=3))
+    with pytest.raises(TypeError):
+        TEngine(TICPConfig(reading_filters=(object(),))).prepare_reading(
+            tmake(np.zeros((4, 3), np.float32)))
+    odd = TEngine(TICPConfig(outlier=(object(),)))
+    odd.set_map(tmake(np.zeros((4, 3), np.float32)))
+    with pytest.raises(TypeError):
+        odd(tmake(np.zeros((4, 3), np.float32)), torch.eye(4))

@@ -3,8 +3,6 @@ icp_core at the tolerances of tests/test_icp_fused.py, and against the
 Pallas kernel in interpret mode (slow tier). The CUDA kernel is held
 against the plain version in tests/test_torch_gpu.py."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +19,7 @@ from pgslam_tpu.ops.icp import icp_core as j_icp_core
 from pgslam_tpu_torch import se3 as tse3
 from pgslam_tpu_torch.cloud import make_cloud as tmake
 from pgslam_tpu_torch.cloud import stack_clouds as tstack
-from pgslam_tpu_torch.convert import config_from_dict
+from pgslam_tpu_torch.convert import config_from_dict, config_to_dict
 from pgslam_tpu_torch.ops.icp import ICPConfig as TICPConfig
 from pgslam_tpu_torch.ops.icp import ICPEngine as TEngine
 from pgslam_tpu_torch.ops.icp_fused import fused_eligible, fused_icp_register
@@ -36,7 +34,7 @@ def _cfg(**kw):
                 coarse_div=4, coarse_iterations=4)
     base.update(kw)
     j = JICPConfig(**base)
-    return j, config_from_dict(TICPConfig, dataclasses.asdict(j))
+    return j, config_from_dict(TICPConfig, config_to_dict(j))
 
 
 def _scene(n=420, seed=0):

@@ -85,6 +85,7 @@ def test_too_few_references_and_ties():
 
 def test_wrapper_rejects_bad_k():
     q, qm, r, rm = _case(4, 8, 0)
-    with pytest.raises(ValueError):
-        knn(torch.from_numpy(q), torch.from_numpy(qm), torch.from_numpy(r),
-            torch.from_numpy(rm), k=9)
+    for k in (0, 17):
+        with pytest.raises(ValueError):
+            knn(torch.from_numpy(q), torch.from_numpy(qm),
+                torch.from_numpy(r), torch.from_numpy(rm), k=k)

@@ -178,17 +178,18 @@ def test_config_from_dict_rebuilds_the_replay_configs():
     import os
     from golden_replay import golden_config
     from pgslam_tpu_torch import replays
-    from pgslam_tpu_torch.convert import config_from_dict
+    from pgslam_tpu_torch.convert import config_from_dict, config_to_dict
     from pgslam_tpu_torch.slam import SlamConfig
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))), "examples"))
     from velodyne_slam import velodyne_config
     for jcfg, tcfg in ((golden_config(), replays.loop_config()),
                        (velodyne_config(), replays.velodyne_config())):
-        d = dataclasses.asdict(jcfg)
+        d = config_to_dict(jcfg)
         rebuilt = config_from_dict(SlamConfig, d)
         assert rebuilt == tcfg
-        assert dataclasses.asdict(rebuilt) == d
+        assert config_to_dict(rebuilt) == d
+        assert dataclasses.asdict(rebuilt) == dataclasses.asdict(jcfg)
 
 
 def test_graph_from_arrays_roundtrip():

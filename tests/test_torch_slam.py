@@ -62,6 +62,9 @@ _BLOCK_JAX = (
     "import pgslam_tpu_torch.parallel.multi_agent\n"
     "import pgslam_tpu_torch.fleet_problems\n"
     "import pgslam_tpu_torch.pipeline, pgslam_tpu_torch.utils.prefetch\n"
+    "import pgslam_tpu_torch.config, pgslam_tpu_torch.io\n"
+    "import pgslam_tpu_torch.eval, pgslam_tpu_torch.datasets\n"
+    "import pgslam_tpu_torch.ops.gridknn, pgslam_tpu_torch.utils.timing\n"
     "from pgslam_tpu_torch import MultiAgentSlam, batched_register\n"
     "from pgslam_tpu_torch import PoseGraphSlamMT\n"
     "print('imported')\n")
@@ -93,33 +96,19 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_unported_paths_raise():
-    """The settings still unported raise NotImplementedError: the grid
-    matcher, VoxelGrid's sort method, a fleet on a device mesh, and a
-    filter the port lacks (here the JAX package's MaxDist, as
-    ``convert.config_from_dict`` meets it in a real config)."""
-    import dataclasses
-
+    """The one setting still unported raises NotImplementedError: a fleet
+    on a device mesh. The grid matcher, VoxelGrid's sort method and every
+    filter run now; ``convert.config_from_dict`` names an unknown filter
+    class in its error."""
     from pgslam_tpu_torch.convert import config_from_dict
     from pgslam_tpu_torch.localizer import LocalizerConfig
-    from pgslam_tpu_torch.ops import filters as F
     from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
     cfg = replays.loop_config()
-    grid = dataclasses.replace(cfg, localizer=dataclasses.replace(
-        cfg.localizer, icp=dataclasses.replace(cfg.localizer.icp,
-                                               matcher="grid")))
-    with pytest.raises(NotImplementedError):
-        replays.PoseGraphSlam(grid, device="cpu")
-    sort = dataclasses.replace(cfg, localizer=dataclasses.replace(
-        cfg.localizer, input_filters=(F.VoxelGrid(method="sort"),)))
-    scans, odom, _ = replays.loop_sequence_golden()
-    with pytest.raises(NotImplementedError):
-        replays.PoseGraphSlam(sort, device="cpu").add_data(
-            0, "world", odom[0], np.eye(4), scans[0])
     with pytest.raises(NotImplementedError):
         MultiAgentSlam(cfg, n_agents=2, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Bogus"):
         config_from_dict(LocalizerConfig, {
-            "input_filters": [{"dist": 30.0, "dim": -1}]})
+            "input_filters": [("Bogus", {"dist": 30.0, "dim": -1})]})
 
 
 def _entry_points():
