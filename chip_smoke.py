@@ -7,7 +7,8 @@ Phases, one line each (the script raises and exits non-zero on the first
 failure, and prints the final JSON line only when every phase passed):
 
 1. device and build: the card from ``nvidia-smi``, then the hand-written
-   kernels built from ``pgslam_tpu_torch/csrc``;
+   kernels built from ``pgslam_tpu_torch/csrc`` and the native core
+   (``pgslam_tpu_torch/native``, host g++);
 2. each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths (K1: 2048x8192 k=1, its coarse stage's
    256x8192 k=1, 8192x8192 k=8, 65536x65536 k=1 and the loop replay's
@@ -78,12 +79,23 @@ failure, and prints the final JSON line only when every phase passed):
    ``golden_replay_grid.npz``; and the loop checkpointed at scan 35 and
    resumed by a fresh facade (``resume``), with its KITTI, TUM and PLY
    files read back. Phase k1 also checks the YAML replays' shapes (1024
-   x 3072 k = 1, 3072 x 3072 k = 10) and k = 16.
+   x 3072 k = 1, 3072 x 3072 k = 10) and k = 16;
+9. the single-scan K2 route (``PGSLAM_FUSED_SINGLE=1``): the loop and the
+   64k corridor synchronized per scan with every scan registered by one
+   K2 launch at B = 1 and none by ``icp_core`` (the loop against
+   ``golden_replay.npz`` at ``FUSED1_LOOP_TOL_M``, the corridor at
+   ``POSE_TOL_M``), ms per scan beside route-off replays run just before;
+   then ``profile_replay`` of both replays with the route on and off
+   (device idle share), and the native core: built by the host g++, the
+   loop's scans streamed through ``ScanLoader`` from KITTI files and
+   replayed, and the native Dijkstra against the Python heap on that
+   replay's graph. Phase k2 also checks the route's shape, 1 x 512 vs
+   1536.
 
-The launch counters are zeroed before each of the paths 3-8 and read
+The launch counters are zeroed before each of the paths 3-9 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
-B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4, K1-K3), and the
-launches line gives each
+B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4, K1-K3, K1-K3
+with K2 at B = 1 only), and the launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
 checked and timed, and its most-launched K4 shapes, every one of which
 must be one of phase k4's cases, with its mean CG steps a K4 launch. The
@@ -249,6 +261,16 @@ P2PLANE_TRUTH_MARGIN_M = 1.0
 P2PLANE_KEYFRAME_WINDOW = 3
 # The resumed loop: a checkpoint after scan RESUME_AT - 1.
 RESUME_AT = 35
+# The single-scan K2 route (PGSLAM_FUSED_SINGLE). The loop with the route
+# on is held to FUSED1_LOOP_TOL_M of golden_replay.npz, set before the
+# first card run (PERF.md, section 6) at 1.5 times the largest of
+# the JAX package's own fused route on the loop (0.10389 m), the route on
+# the CPU (0.04999 m) and 16 CPU runs with the odometry moved by 1e-6 m
+# (up to 0.12967 m); the corridor keeps POSE_TOL_M.
+FUSED1_LOOP_TOL_M = 0.20
+# The native phase: the loop's scans streamed through ScanLoader from
+# this many KITTI files.
+NATIVE_SCANS = 70
 K4_X_RTOL = 1e-3          # of max|x_plain|: fp32 CG with another sum order
 K4_RESIDUAL_FACTOR = 1.5  # |A x + b| / |b| <= this * sqrt(cg_tol)
 # The pgo phase holds each route to its plain loop: poses (m) and final
@@ -363,6 +385,14 @@ def phase_device_and_build():
     _build.lib()
     line("build", seconds=round(seconds, 3), library=os.path.basename(path),
          torch=torch.__version__, cuda=torch.version.cuda)
+    # The native core (host g++) builds here, not inside the first timed
+    # replay's first Dijkstra.
+    from pgslam_tpu_torch import native
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native core did not build or load")
+    line("native_build", seconds=round(time.perf_counter() - t0, 3),
+         library=os.path.basename(native.library_path()))
     from pgslam_tpu_torch.ops.icp_fused import device_limits
     budget, active = device_limits(torch.cuda.current_device())
     line("k2_limits", cta_smem_bytes=budget, clusters_held_at_once=",".join(
@@ -591,6 +621,17 @@ def k2_control_twists(n: int):
     return tw
 
 
+def k2_bound(B: int, n: int, m: int, iterations: int):
+    """K2's least time for ``B`` registrations of ``n`` reading points
+    against ``m`` map points that ran ``iterations`` fine iterations in
+    all: each fine iteration and each entry's final pass an n x m search
+    (the coarse stage's count is not reported, so it is left out and the
+    bound stays a lower bound); every input read once, every output row
+    written once."""
+    pairs = n * m * (iterations + B)
+    return bound(B * (13 * n + 25 * m + 4 * (16 + 56)), PAIR_FLOPS * pairs)
+
+
 def k2_compare(dev, label, rd, rf, T0, cfg, reps, plain_reps, controls=0,
                **info):
     """K2 against its plain version on one batch: every entry's T,
@@ -660,11 +701,7 @@ def k2_compare(dev, label, rd, rf, T0, cfg, reps, plain_reps, controls=0,
                         for f, v in worst.items()})
     n_matched = int(matched.sum())
     err = float(gaps["T"].max())
-    # Bound: the fine iterations and the final pass of every entry, each an
-    # NQ x NR search (the coarse stage's count is not reported, so it is
-    # left out and the bound stays a lower bound); every input read once.
-    pairs = n * m * int((res.iterations.to(torch.int64) + 1).sum())
-    bnd = bound(B * (13 * n + 25 * m + 4 * (16 + 56)), PAIR_FLOPS * pairs)
+    bnd = k2_bound(B, n, m, int(res.iterations.to(torch.int64).sum()))
     line(label, shape=f"{B}x{n}x{m}", **info,
          iterations=",".join(map(str, res.iterations.tolist()[:4]))
          + ("..." if B > 4 else ""),
@@ -828,7 +865,11 @@ def phase_k2_headline(dev, cfg, refs, packets, offsets):
         f"{name}_err_{q}_m": round(float(np.quantile(e, x)), 5)
         for name, e in errs.items()
         for q, x in (("q50", 0.5), ("q90", 0.9), ("max", 1.0))})
-    return out[:4] + out[6:8]
+    # The bound of the batch's first 16 entries, the B = 16 case
+    # ``--k2-layouts`` times.
+    b16 = k2_bound(16, packets[0].shape[1], refs.points.shape[1],
+                   int(out[4].iterations[:16].sum()))
+    return out[:4] + out[6:8] + (b16,)
 
 
 K2_LAYOUTS = ((1, 1), (1, 4), (2, 8), (4, 4), (8, 2), (8, 16), (16, 4),
@@ -1051,16 +1092,39 @@ def phase_fleet(dev, seq, n_steps=FLEET_STEPS):
 def phase_fleet_split(dev, seq, n_steps=FLEET_STEPS):
     """The fleet run again with each stage between two syncs: where its
     step time goes. The syncs are this run's own, so its step time is
-    reported apart from the fleet's."""
+    reported apart from the fleet's. Also K2's bound at the fleet's
+    launches (registrations and verifications, B = 16), from each
+    launch's shape and iterations: returns (mean bound ms a launch, what
+    bounds it, launches)."""
+    from pgslam_tpu_torch.parallel import batched
     split = FleetTimer()
-    _, step_ms, _, _ = drive_fleet(dev, seq, n_steps, split)
+    k2 = batched.fused_icp_register
+    bounds = []
+
+    def recorded(rd, rf, T0, cfg, *a, **k):
+        res = k2(rd, rf, T0, cfg, *a, **k)
+        B, n = rd.points.shape[:2]
+        bounds.append(k2_bound(B, n, rf.points.shape[1],
+                               int(res.iterations.sum())))
+        return res
+
+    batched.fused_icp_register = recorded
+    try:
+        _, step_ms, _, _ = drive_fleet(dev, seq, n_steps, split)
+    finally:
+        batched.fused_icp_register = k2
     total_ms = float(np.sum(step_ms))
+    b16 = (float(np.mean([b[0] for b in bounds])), bounds[0][1]) \
+        if bounds else (None, None)
     line("fleet_split", steps=n_steps,
          instrumented_ms_per_step=round(total_ms / n_steps, 3),
          **{f"{k}_ms_per_step": round(v / n_steps, 3)
             for k, v in split.ms.items()},
          other_ms_per_step=round((total_ms - sum(split.ms.values()))
-                                 / n_steps, 3))
+                                 / n_steps, 3),
+         k2_launches=len(bounds), k2_bound_ms_per_launch=b16[0],
+         k2_bound_by=b16[1])
+    return b16[0], b16[1], len(bounds)
 
 
 def fleet_of_one(dev, fused, odom_noise=0.0, seed=0):
@@ -2337,6 +2401,200 @@ def phase_replay_witness(dev, out_dir="chiprun_out"):
                 [list(c) + [-1] * (width - len(c)) for c in comps])))})
 
 
+def single_inputs(dev):
+    """The single-scan route's K2 launch on the loop: scan 3 (512 points)
+    against the localizer's local map, scans 0-2 in scan 2's frame at its
+    capacity (3 x 512 points), from the odometry guess, under the loop's
+    point-to-point config (:func:`stream_inputs`'s first entry). Returns
+    (cfg, reading, reference, T0) at B = 1."""
+    cfg, rd, rf, T0 = stream_inputs(dev)
+    first = lambda c: c.map(lambda a: a[:1].contiguous())
+    return cfg, first(rd), first(rf), T0[:1].contiguous()
+
+
+def phase_k2_single(dev):
+    """K2 at the single route's B = 1 loop shape against its plain
+    version, at phase k2's limits with equal iterations."""
+    cfg, rd, rf, T0 = single_inputs(dev)
+    out = k2_compare(dev, "k2_single", rd, rf, T0, cfg, 10, 2,
+                     controls=K2_CONTROLS, error=cfg.error,
+                     coarse_div=cfg.coarse_div, anderson_m=0)
+    return out[:4] + out[6:8]
+
+
+class _FusedSingle:
+    """The single-scan K2 route on inside the block (``localizer.
+    FUSED_SINGLE``, as ``PGSLAM_FUSED_SINGLE=1`` sets it), counting the
+    localizer's registrations through K2 and through ``icp_core``."""
+
+    def __enter__(self):
+        from pgslam_tpu_torch import localizer as L
+        self.L, self.k2_scans, self.icp_core_scans = L, 0, 0
+        self.saved = (L.FUSED_SINGLE, L.register_one, L.icp_core)
+        register_one, icp_core = self.saved[1:]
+
+        def counted_k2(*a, **k):
+            self.k2_scans += 1
+            return register_one(*a, **k)
+
+        def counted_core(*a, **k):
+            self.icp_core_scans += 1
+            return icp_core(*a, **k)
+
+        L.FUSED_SINGLE, L.register_one, L.icp_core = (True, counted_k2,
+                                                      counted_core)
+        return self
+
+    def __exit__(self, *exc):
+        self.L.FUSED_SINGLE, self.L.register_one, self.L.icp_core = \
+            self.saved
+
+
+def route_off_ms(dev, name):
+    """ms per scan of a replay synchronized per scan on the default route,
+    run just before its route-on twin so that both are warm."""
+    import torch
+    from pgslam_tpu_torch import replays
+    _, _, stats = replays.run_replay(name, device=dev,
+                                     sync=torch.cuda.synchronize)
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    line(f"replay_{name}_route_off", ms_per_scan=round(ms, 3))
+    return ms
+
+
+def phase_replay_fused1(dev, name, keyframes, loops, tol, ms_off):
+    """A replay synchronized per scan with the single-scan route on: every
+    scan after the first registers in one K2 launch at B = 1 and none
+    through ``icp_core``, so K1 launches only for the overlap probes and
+    the loop closer (at most one probe a scan and one residual a
+    verification); K2 launches once a scan and once a verification; the
+    counts equal the fixture's and the gap is within ``tol``. ms per scan
+    beside the route-off replay's (``ms_off``, this run's)."""
+    import torch
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
+    from pgslam_tpu_torch.ops.knn import knn
+    from pgslam_tpu_torch.utils import counters
+    outcomes = ("accepted", "rejected", "rejected_duplicate")
+    verified = lambda: sum(counters[f"loopcloser/{o}"] for o in outcomes)
+    with _FusedSingle() as route:
+        k1, k2, v0 = knn.launches, fused_icp_register.launches, verified()
+        per_scan, _, stats = replays.run_replay(name, device=dev,
+                                                sync=torch.cuda.synchronize)
+        k1, k2 = knn.launches - k1, fused_icp_register.launches - k2
+        verifications = int(verified() - v0)
+    gap = replays.max_pose_gap(per_scan, replays.fixture(name)[
+        "per_scan_poses"])
+    ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    n = len(per_scan)
+    line(f"replay_{name}_fused1", scans=n, keyframes=stats["n_keyframes"],
+         loop_edges=stats["n_loops"], max_gap_m=round(gap, 5),
+         gap_limit_m=tol, k2_scan_launches=route.k2_scans,
+         icp_core_scans=route.icp_core_scans, k2_launches=k2,
+         verifications=verifications, k1_launches=k1,
+         ms_per_scan=round(ms, 3), ms_per_scan_route_off=round(ms_off, 3))
+    if not (np.isfinite(per_scan).all() and gap < tol
+            and stats["n_keyframes"] == keyframes
+            and stats["n_loops"] == loops
+            and route.k2_scans == n - 1 and route.icp_core_scans == 0
+            and k2 == route.k2_scans + verifications
+            and k1 <= n + verifications):
+        raise AssertionError(
+            f"replay_{name}_fused1: gap {gap} (limit {tol}), keyframes "
+            f"{stats['n_keyframes']}, loops {stats['n_loops']}, K2 scans "
+            f"{route.k2_scans} of {n - 1}, icp_core scans "
+            f"{route.icp_core_scans}, K2 launches {k2} ({verifications} "
+            f"verifications), K1 launches {k1}")
+    return ms
+
+
+def phase_fused1_idle(dev):
+    """``profile_replay`` of the loop and the 64k corridor with the single
+    route on and off: wall and device ms per scan and the device's idle
+    share."""
+    from pgslam_tpu_torch.profile_replay import profile
+    out = {}
+    for name in ("loop", "corridor_64k"):
+        for on in (True, False):
+            p = profile(name, fused_single=on)
+            key = f"{name}_{'on' if on else 'off'}"
+            out[key] = {k: p[k] for k in (
+                "wall_ms_per_unit", "device_busy_ms_per_unit",
+                "device_idle_share")}
+            groups = p["device_ms_per_unit_by_kernel_group"]
+            line("fused1_profile", replay=name, route="on" if on else "off",
+                 wall_ms_per_scan=round(p["wall_ms_per_unit"], 3),
+                 device_busy_ms_per_scan=round(
+                     p["device_busy_ms_per_unit"], 4),
+                 device_idle_share=round(p["device_idle_share"], 4),
+                 device_events_per_scan=round(p["device_events_per_unit"],
+                                              1),
+                 **{f"{g}_ms_per_scan": round(v, 4)
+                    for g, v in sorted(groups.items())})
+            out[key]["by_group"] = groups
+    return out
+
+
+def phase_native(dev):
+    """The native core: it builds (host g++) and loads; the golden loop's
+    scans written as KITTI files, streamed back through ``ScanLoader``
+    bit for bit and replayed through ``PoseGraphSlam`` (counts and gap as
+    the loop replay's); the native Dijkstra against the Python heap from
+    every vertex of that replay's final graph, distances and settle
+    order."""
+    import tempfile
+
+    import torch
+    from pgslam_tpu_torch import (PoseGraphSlam, ScanLoader, replays,
+                                  save_kitti_bin)
+    from pgslam_tpu_torch.graph.shortest_path import dijkstra_python
+    from pgslam_tpu_torch.native import (library_path, native_available,
+                                         native_dijkstra)
+    if not native_available():
+        raise AssertionError("the native core did not build or load")
+    scans, odom, _ = replays.loop_sequence_golden()
+    scans, odom = scans[:NATIVE_SCANS], odom[:NATIVE_SCANS]
+    slam = PoseGraphSlam(replays.loop_config(), device=dev)
+    T_rs = np.eye(4, dtype=np.float32)
+    per_scan, equal = [], 0
+    with tempfile.TemporaryDirectory() as d:
+        for i, s in enumerate(scans):
+            save_kitti_bin(os.path.join(d, f"{i:06d}.bin"), s)
+        with ScanLoader(d) as loader:
+            n_files = len(loader)
+            for i, s in enumerate(loader):
+                equal += bool(np.array_equal(s, scans[i]))
+                slam.add_data(i, "world", odom[i], T_rs, s)
+                torch.cuda.synchronize()
+                per_scan.append(slam.localizer.T_world_robot.copy())
+    gap = replays.max_pose_gap(np.stack(per_scan), replays.fixture("loop")[
+        "per_scan_poses"][:len(per_scan)])
+    g = slam.get_graph()
+    n, e = g.n_vertices, g.n_edges
+    args = (n, g.edge_from[:e], g.edge_to[:e], g.edge_weight[:e])
+    agree, t_native, t_python = 0, 0.0, 0.0
+    for src in range(n):
+        t1 = time.perf_counter()
+        nd, ns = native_dijkstra(*args, src)
+        t2 = time.perf_counter()
+        pd, ps = dijkstra_python(*args, src)
+        t3 = time.perf_counter()
+        t_native, t_python = t_native + t2 - t1, t_python + t3 - t2
+        agree += bool(np.allclose(nd, pd, rtol=1e-6) and ns == ps)
+    line("native", library=os.path.basename(library_path()),
+         kitti_files=n_files,
+         scans_bit_equal=equal, keyframes=n, loop_edges=slam.n_loop_edges(),
+         max_gap_m=round(gap, 5), dijkstra_sources_equal=agree,
+         dijkstra_native_ms=round(1e3 * t_native / n, 4),
+         dijkstra_python_ms=round(1e3 * t_python / n, 4))
+    if not (n_files == equal == len(scans) and gap < POSE_TOL_M
+            and n == 20 and slam.n_loop_edges() == 1 and agree == n):
+        raise AssertionError(f"native: {equal} of {len(scans)} scans equal, "
+                             f"gap {gap}, {n} keyframes, "
+                             f"{slam.n_loop_edges()} loops, Dijkstra equal "
+                             f"from {agree} of {n} sources")
+
+
 def main() -> int:
     try:
         import torch
@@ -2398,9 +2656,10 @@ def main() -> int:
     (k2_err, k2_ms, k2_pms, k2_bnd, k2_lay, k2_dms), k2_aa_err = phase_k2(
         dev, seq)
     k2s = phase_k2_stream(dev)
+    k2one = phase_k2_single(dev)
     hcfg, refs, packets, offsets = headline_setup(dev)
-    k2h_err, k2h_ms, k2h_pms, k2h_bnd, k2h_lay, k2h_dms = phase_k2_headline(
-        dev, hcfg, refs, packets, offsets)
+    (k2h_err, k2h_ms, k2h_pms, k2h_bnd, k2h_lay, k2h_dms,
+     k2h_b16) = phase_k2_headline(dev, hcfg, refs, packets, offsets)
     k3 = phase_k3(dev)
     k4 = phase_k4(dev)
 
@@ -2478,7 +2737,7 @@ def main() -> int:
     if min(fleet[:3]) == 0 or fleet_batches.get(16, 0) == 0:
         raise AssertionError(f"a kernel of the fleet path never ran (K1-K4 "
                              f"{fleet}, K2 batch sizes {fleet_batches})")
-    phase_fleet_split(dev, seq5)
+    fleet_b16 = phase_fleet_split(dev, seq5)
     phase_fleet_golden(dev)
 
     classic_loops, corridor_lag0 = classic_baselines(dev)
@@ -2507,11 +2766,28 @@ def main() -> int:
     if min(config[:3]) == 0:
         raise AssertionError(f"a kernel of the config and persistence path "
                              f"never ran (K1-K4 {config})")
+    fused1_ms = {f"{n}_off": route_off_ms(dev, n)
+                 for n in ("loop", "corridor_64k")}
+    reset()
+    fused1_ms["loop_on"] = phase_replay_fused1(
+        dev, "loop", 20, 1, FUSED1_LOOP_TOL_M, fused1_ms["loop_off"])
+    fused1_ms["corridor_64k_on"] = phase_replay_fused1(
+        dev, "corridor_64k", 4, 0, POSE_TOL_M, fused1_ms["corridor_64k_off"])
+    fused1 = counts()
+    top_shapes("fused_single")
+    fused1_batches = dict(fused_icp_register.batch_sizes)
+    if min(fused1[:3]) == 0 or set(fused1_batches) != {1}:
+        raise AssertionError(f"a kernel of the single-scan route never ran, "
+                             f"or K2 ran at another batch (K1-K4 {fused1}, "
+                             f"K2 batch sizes {fused1_batches})")
+    fused1_idle = phase_fused1_idle(dev)
+    phase_native(dev)
     line("launches", per_scan=",".join(map(str, per_scan)),
          pgo=",".join(map(str, pgo_path)), batched=",".join(map(str, batched)),
          fleet=",".join(map(str, fleet)),
          deferred=",".join(map(str, deferred)),
          config=",".join(map(str, config)),
+         fused_single=",".join(map(str, fused1)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
          deferred_k2_batch_sizes=",".join(
@@ -2528,7 +2804,9 @@ def main() -> int:
             for p, (_, mean) in k4_shapes.items()})
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
-             "fleet": fleet, "deferred": deferred, "config": config}
+             "fleet": fleet, "deferred": deferred, "config": config,
+             "fused_single": fused1}
+
     k1_main = k1_times["2048x8192_k1"]
     k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
     k3_err, k3_ms, k3_pms, k3_bnd, k3_layout = k3["500_poses_500_edges"]
@@ -2548,7 +2826,8 @@ def main() -> int:
                                  for p, top in k1_shapes.items()},
           "config_ms_per_scan": config_ms}),
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
-         max(k2h_err, k2_err, k2_aa_err, k2s[0]), k2h_ms, k2h_pms, k2h_bnd,
+         max(k2h_err, k2_err, k2_aa_err, k2s[0], k2one[0]), k2h_ms, k2h_pms,
+         k2h_bnd,
          {"shape": "128 x 1024 vs 8192, batched_icp_config",
           "layout": layout_name(k2h_lay), "device_ms": k2h_dms,
           "verification_b1_layout": layout_name(k2_lay),
@@ -2563,6 +2842,19 @@ def main() -> int:
           "stream_b4_max_abs_err": k2s[0], "stream_b4_ms": k2s[1],
           "stream_b4_plain_ms": k2s[2], "stream_b4_bound_ms": k2s[3][0],
           "stream_b4_device_ms": k2s[5],
+          "b16_bound_ms": k2h_b16[0],
+          "fleet_b16_bound_ms_per_launch": fleet_b16[0],
+          "fleet_b16_launches_split_run": fleet_b16[2],
+          "single_b1_shape": "1 x 512 vs 1536, the loop's point-to-point: "
+                             "a scan under PGSLAM_FUSED_SINGLE=1",
+          "single_b1_layout": layout_name(k2one[4]),
+          "single_b1_max_abs_err": k2one[0], "single_b1_ms": k2one[1],
+          "single_b1_plain_ms": k2one[2], "single_b1_bound_ms": k2one[3][0],
+          "single_b1_device_ms": k2one[5],
+          "fused_single_ms_per_scan": fused1_ms,
+          "fused_single_profile": {k: {f: v for f, v in p.items()
+                                       if f != "by_group"}
+                                   for k, p in fused1_idle.items()},
           "deferred_ms_per_scan": {
               "loop_lag2": lag2_ms, "loop_stream4": stream_ms,
               "loop_mt_free_running": mt_ms,

@@ -34,30 +34,44 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from . import metrics, se3  # noqa: E402,F401
-from .cloud import Cloud, make_cloud, transform_cloud  # noqa: E402,F401
-from .ops.icp import ICPConfig, ICPEngine, ICPResult  # noqa: E402,F401
+from .cloud import (Cloud, empty_cloud, make_cloud,  # noqa: E402,F401
+                    transform_cloud)
+from .ops.icp import ICPConfig, ICPEngine, ICPResult, icp  # noqa: E402,F401
 
-__all__ = ["se3", "metrics", "Cloud", "make_cloud", "transform_cloud",
-           "ICPConfig", "ICPEngine", "ICPResult", "PoseGraphSlam",
-           "PoseGraphSlamMT", "SlamConfig", "PGOConfig", "optimize_pose_graph", "pose_marginals",
-           "MultiAgentSlam", "batched_register"]
+# name -> submodule; each is imported at first use. pgslam_tpu's
+# make_sharded_register (several devices) is not ported yet.
+_LAZY = {
+    **dict.fromkeys(("PoseGraphSlam", "SlamConfig"), "slam"),
+    "PoseGraphSlamMT": "pipeline",
+    "PoseGraph": "graph.pose_graph",
+    "LocalMap": "localmap",
+    "MultiAgentSlam": "parallel.multi_agent",
+    "batched_register": "parallel.batched",
+    **dict.fromkeys(("LocalizerConfig", "Localizer"), "localizer"),
+    **dict.fromkeys(("LoopCloserConfig", "LoopCloser"), "loopcloser"),
+    **dict.fromkeys(("OptimizerConfig", "Optimizer"), "optimizer"),
+    **dict.fromkeys(("PGOConfig", "optimize_pose_graph", "pose_marginals"),
+                    "optim.pgo"),
+    **dict.fromkeys(("save_checkpoint", "load_checkpoint",
+                     "save_trajectory_kitti", "load_trajectory_kitti",
+                     "save_trajectory_tum", "load_trajectory_tum"), "io"),
+    **dict.fromkeys(("ate_rmse", "rpe", "align_umeyama"), "eval"),
+    **dict.fromkeys(("prefetch_clouds", "prefetch_batches"),
+                    "utils.prefetch"),
+    "ScanLoader": "native",
+    **dict.fromkeys(("load_kitti_bin", "save_kitti_bin",
+                     "harsh_velodyne_pair"), "datasets"),
+}
+
+__all__ = ["se3", "metrics", "Cloud", "make_cloud", "empty_cloud",
+           "transform_cloud", "ICPConfig", "ICPEngine", "ICPResult", "icp",
+           *_LAZY]
 
 
 def __getattr__(name):
-    if name in ("PoseGraphSlam", "SlamConfig"):
-        from . import slam
-        return getattr(slam, name)
-    if name == "PoseGraphSlamMT":
-        from .pipeline import PoseGraphSlamMT
-        return PoseGraphSlamMT
-    if name in ("PGOConfig", "optimize_pose_graph", "pose_marginals"):
-        from .optim import pgo
-        return getattr(pgo, name)
-    if name == "MultiAgentSlam":
-        from .parallel.multi_agent import MultiAgentSlam
-        return MultiAgentSlam
-    if name == "batched_register":
-        from .parallel.batched import batched_register
-        return batched_register
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
     raise AttributeError(f"module 'pgslam_tpu_torch' has no attribute "
                          f"{name!r}")

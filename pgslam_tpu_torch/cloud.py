@@ -86,6 +86,46 @@ def make_cloud(points, mask=None, descriptors=None,
                               for k, v in desc.items()})
 
 
+def empty_cloud(capacity: int, descriptor_spec: Optional[Dict[str, int]] = None,
+                device=None) -> Cloud:
+    """An all-padding cloud; ``descriptor_spec`` maps channel names to
+    widths."""
+    return Cloud(points=torch.zeros((capacity, 3), device=device),
+                 mask=torch.zeros((capacity,), dtype=torch.bool,
+                                  device=device),
+                 descriptors={name: torch.zeros((capacity, dim),
+                                                device=device)
+                              for name, dim in
+                              (descriptor_spec or {}).items()})
+
+
+def concatenate_clouds(clouds: Sequence[Cloud]) -> Cloud:
+    """Concatenate along the point axis; capacities add. Descriptors are
+    the union of the channels, zero where a cloud lacks one."""
+    keys = sorted({k for c in clouds for k in c.descriptors})
+    pts = torch.cat([c.points for c in clouds])
+    desc = {}
+    for k in keys:
+        dim = next(c.descriptors[k].shape[-1] for c in clouds
+                   if k in c.descriptors)
+        desc[k] = torch.cat([c.descriptors[k] if k in c.descriptors
+                             else pts.new_zeros((c.capacity, dim))
+                             for c in clouds])
+    return Cloud(points=pts, mask=torch.cat([c.mask for c in clouds]),
+                 descriptors=desc)
+
+
+def pad_cloud(cloud: Cloud, capacity: int) -> Cloud:
+    """Grow a cloud to ``capacity`` with padding."""
+    extra = capacity - cloud.capacity
+    if extra < 0:
+        raise ValueError("pad_cloud cannot shrink")
+    if extra == 0:
+        return cloud
+    grow = lambda a: torch.cat([a, a.new_zeros((extra,) + a.shape[1:])])
+    return cloud.map(grow)
+
+
 def dequantize_cloud(cloud: Cloud) -> Cloud:
     """int16 millimetre cloud -> float32 metres; identity otherwise."""
     if cloud.points.dtype != torch.int16:

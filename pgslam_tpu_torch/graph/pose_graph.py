@@ -107,6 +107,13 @@ class PoseGraph:
         t = self.edge_to[:self.n_edges]
         return np.unique(np.concatenate([t[f == v], f[t == v]]))
 
+    def edges_between(self, vertex_set) -> np.ndarray:
+        """Indices of the edges with both endpoints in ``vertex_set``."""
+        vs = np.asarray(sorted(vertex_set))
+        f = self.edge_from[:self.n_edges]
+        t = self.edge_to[:self.n_edges]
+        return np.nonzero(np.isin(f, vs) & np.isin(t, vs))[0]
+
     # -- device exports (torch) ------------------------------------------
 
     def device_poses(self, optimized: bool = True, device=None):
@@ -180,6 +187,11 @@ class MapManager:
                                     cov_from_to) -> None:
         self.graph.add_edge(from_v, to_v, T_from_to, cov_from_to,
                             LOOP_CONSTRAINT)
+
+    def update_keyframe_transform(self, v: int, T, update_time: int) -> None:
+        """Optimizer writeback of one vertex."""
+        self.graph.optimized_poses[v] = np.asarray(T, np.float32)
+        self.graph.update_times[v] = update_time
 
     def update_keyframe_transforms_bulk(self, poses: np.ndarray,
                                         update_time: int) -> None:

@@ -6,6 +6,9 @@ cache, the same fp64 host re-anchoring, and its three scan paths:
 * classic (``sync_lag=0``): each scan's result, with the overlap probe
   riding in it, is packed into one vector, fetched once and committed
   before the next scan;
+* under ``PGSLAM_FUSED_SINGLE=1`` an eligible config registers each scan
+  of the classic and deferred paths in K2 at a batch of one instead of
+  ``icp_core`` (on the card only; :func:`single_route`);
 * deferred (``sync_lag > 0``, or ``force_deferred`` at any lag): a scan
   is dispatched at once with an odometry-extrapolated guess and
   committed ``sync_lag`` scans later;
@@ -24,6 +27,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import logging
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,9 +42,28 @@ from .ops import filters as F
 from .ops.icp import (HostFetch, ICPConfig, ICPEngine, ICPResult,
                       compute_overlap, fetch_async, icp_core, pack_result,
                       unpack_result)
-from .parallel.batched import batched_register
+from .parallel.batched import batched_register, fused_ready, register_one
 
 log = logging.getLogger("pgslam_tpu_torch.localizer")
+
+# The reference's opt-in (pgslam_tpu/localizer.py:45): "1" registers each
+# scan of an eligible config in K2 at a batch of one. Read once, off by
+# default.
+FUSED_SINGLE = os.environ.get("PGSLAM_FUSED_SINGLE", "0") == "1"
+# The devices the single-scan route runs on. The reference never takes it
+# on the CPU backend; a test adds "cpu" to run K2's plain version.
+FUSED_SINGLE_DEVICES = ("cuda",)
+
+
+def single_route(cfg: ICPConfig, reference: Cloud,
+                 device: torch.device) -> bool:
+    """Whether a scan registers in K2 at a batch of one: the switch is on,
+    the device is one of ``FUSED_SINGLE_DEVICES``, and K2 covers the
+    registration (``fused_ready``: an eligible config, reference normals
+    for point-to-plane). No fallback follows: a K2 that fails to build or
+    launch fails the scan."""
+    return (FUSED_SINGLE and device.type in FUSED_SINGLE_DEVICES
+            and fused_ready(cfg, reference))
 
 
 def _orthonormalize(T: np.ndarray) -> np.ndarray:
@@ -327,9 +350,12 @@ class Localizer:
                               self.count - 1)
         reading = self.icp_engine.prepare_reading(cloud)
         probe_comp = self.neighbor_probe_request(T_world_robot=T_pred)
-        result = icp_core(reading, self.icp_engine.reference,
-                          self._tensor(T0), self.icp_engine.config,
-                          self.icp_engine.index)
+        cfg, ref = self.icp_engine.config, self.icp_engine.reference
+        if single_route(cfg, ref, self.device):
+            result = register_one(reading, ref, self._tensor(T0), cfg)
+        else:
+            result = icp_core(reading, ref, self._tensor(T0), cfg,
+                              self.icp_engine.index)
         ov = None
         if probe_comp is not None:
             ov = compute_overlap(reading, self._cached_probe_map(probe_comp),
@@ -472,8 +498,18 @@ class Localizer:
         self._last_reading = reading
         return reading, input_T_refkf_robot
 
+    def finish_scan(self, result: ICPResult, input_T_world_robot) -> None:
+        """Everything after a registration: the pose composition, then the
+        decision tree with its overlap probe (:meth:`update_after_icp`)."""
+        self.update_after_icp(self.begin_finish(result))
+        self.last_input_T_world_robot = np.asarray(input_T_world_robot,
+                                                   np.float32)
+
     def begin_finish(self, result: ICPResult) -> ICPResult:
-        """Pose composition from a host-side ICP result."""
+        """Pose composition from an ICP result (on the device or the
+        host); returns it on the host."""
+        if isinstance(result.T, torch.Tensor):
+            result, _ = unpack_result(pack_result(result).cpu())
         self.last_result = result
         self.T_refkf_robot = _orthonormalize(np.asarray(result.T))
         self.T_world_robot = _orthonormalize(
@@ -501,13 +537,22 @@ class Localizer:
             return None
         return comp
 
+    def update_after_icp(self, result: ICPResult) -> None:
+        """The decision tree with the overlap probe computed here, at the
+        current pose, then the composition applied."""
+        comp = self.neighbor_probe_request()
+        ov = None if comp is None else self.compute_overlap_with(
+            comp, reading=self._last_reading)
+        self.decide_composition(result, comp, ov)
+        self.apply_composition()
+
     def decide_composition(self, result: ICPResult, comp, probe_ov) -> None:
         """The post-ICP decision tree, given the neighbour composition and
         its probe overlap (both None when there is no candidate)."""
         overlap = float(result.overlap)
         log.info("[Localizer] current overlap = %.4f", overlap)
-        is_better = (comp is not None and self.is_overlap_enough(probe_ov)
-                     and probe_ov > overlap)
+        is_better = comp is not None and self._overlap_is_better(
+            probe_ov, overlap)
         if self.is_overlap_enough(overlap):
             if is_better:
                 self.next_composition = comp
@@ -602,6 +647,31 @@ class Localizer:
             log.warning("[Localizer] overlap below minimal overlap! "
                         "(%.3f < %.3f)", overlap, self.config.minimal_overlap)
         return overlap >= self.config.overlap_threshold
+
+    def _overlap_is_better(self, candidate_overlap: float,
+                           current_overlap: float) -> bool:
+        return (self.is_overlap_enough(candidate_overlap)
+                and candidate_overlap > current_overlap)
+
+    def is_better_composition(self, current_overlap: float,
+                              candidate: Composition) -> bool:
+        """Whether ``candidate`` (not the current composition) overlaps
+        the scan enough and more than the current one does."""
+        if self.local_map.has_same_composition(candidate):
+            return False
+        return self._overlap_is_better(self.compute_overlap_with(candidate),
+                                       current_overlap)
+
+    def compute_overlap_with(self, comp: Composition,
+                             reading: Optional[Cloud] = None) -> float:
+        """The overlap probe: the scan's reading (prepared here from the
+        input cloud unless given) against ``comp``'s candidate map in the
+        world frame (cached), at the current world pose."""
+        if reading is None:
+            reading = self.icp_engine.prepare_reading(self.input_cloud)
+        return float(compute_overlap(reading, self._cached_probe_map(comp),
+                                     self._tensor(self.T_world_robot),
+                                     self.icp_engine.config))
 
     def _cached_probe_map(self, comp: Composition) -> Cloud:
         """The candidate map in the world frame after the reference

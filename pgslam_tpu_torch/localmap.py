@@ -42,8 +42,17 @@ class Composition:
     def __len__(self):
         return len(self._items)
 
+    def __contains__(self, v) -> bool:
+        return int(v) in self._items
+
+    def __getitem__(self, i):
+        return self._items[i]
+
     def __repr__(self):
         return f"Composition(cap={self.capacity}, {self._items})"
+
+    def copy(self) -> "Composition":
+        return Composition(self.capacity, self._items)
 
     def as_list(self) -> List[int]:
         return list(self._items)
@@ -173,6 +182,13 @@ class LocalMap:
         self._capacity = int(capacity)
         self._data: List[Tuple[int, Keyframe]] = []
         self._cloud: Optional[Cloud] = None
+
+    @classmethod
+    def from_graph(cls, graph: PoseGraph, comp: Composition) -> "LocalMap":
+        """A local map built from ``comp``'s keyframes."""
+        lm = cls(comp.capacity)
+        lm.update_to_new_composition(graph, comp)
+        return lm
 
     def update_to_new_composition(self, graph: PoseGraph,
                                   comp: Composition,

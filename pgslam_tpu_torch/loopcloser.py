@@ -28,7 +28,7 @@ from .ops.icp import (ICPConfig, ICPResult, compute_residual,
                       eps_dead_zone, eps_margin, fetch_async, icp_core,
                       pack_result, reference_chain, reference_index,
                       to_host, unpack_result)
-from .ops.icp_fused import fused_eligible, fused_icp_register
+from .parallel.batched import batched_register, register_one, use_fused
 from .utils import counters
 
 log = logging.getLogger("pgslam_tpu_torch.loopcloser")
@@ -52,20 +52,16 @@ class LoopCloserConfig:
 def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
            cfg: ICPConfig) -> torch.Tensor:
     """The verification stage: both filter chains, the registration (K2
-    when eligible, else ``icp_core``, through the filtered reference's
-    grid index under ``matcher="grid"``), and the fresh residual at the
-    result (matched without the index, as in JAX). Returns the
-    result packed with the residual in its extra slot (``pack_result``),
-    on the clouds' device."""
+    where :func:`use_fused` routes it on the device the clouds live on,
+    else ``icp_core``, through the filtered reference's grid index under
+    ``matcher="grid"``), and the fresh residual at the result (matched
+    without the index, as in JAX). Returns the result packed with the
+    residual in its extra slot (``pack_result``), on the clouds'
+    device."""
     reading = F.apply_chain(cfg.reading_filters, reading)
     ref = F.apply_chain(reference_chain(cfg, ref_cloud), ref_cloud)
-    if fused_eligible(cfg):
-        lift = lambda c: c.map(lambda a: a[None])
-        res = fused_icp_register(lift(reading), lift(ref), T0[None], cfg)
-        res = dataclasses.replace(res, **{
-            f.name: getattr(res, f.name)[0]
-            for f in dataclasses.fields(res)
-            if getattr(res, f.name) is not None})
+    if use_fused(cfg, ref, reading.points.device):
+        res = register_one(reading, ref, T0, cfg)
     else:
         res = icp_core(reading, ref, T0, cfg, reference_index(ref, cfg))
     return pack_result(res, compute_residual(reading, ref, res.T, cfg))
@@ -77,7 +73,6 @@ def verify_batch(readings: Cloud, refs: Cloud, T0s: torch.Tensor,
     both filter chains per entry, one batched registration (one K2 launch
     on the card when the config is eligible) and each entry's residual
     computed fresh at its result. Returns (batched result, residuals)."""
-    from .parallel.batched import batched_register
     B = readings.points.shape[0]
     rd = [F.apply_chain(cfg.reading_filters, readings.map(lambda a: a[b]))
           for b in range(B)]
@@ -272,13 +267,21 @@ class LoopCloser:
                      input_vertex)
 
     def process_local_map_candidate(self) -> bool:
-        graph = self.mm.get_graph()
-        comp = self.find_candidate_composition(self.input_vertex)
-        if comp is None:
+        if not self.find_local_map_candidate(self.input_vertex):
             return False
-        self.candidate_local_map.update_to_new_composition(graph, comp)
+        graph = self.mm.get_graph()
         self.input_cloud = graph.clouds[self.input_vertex]
         self.input_T_world_kf = graph.optimized_poses[self.input_vertex].copy()
+        return True
+
+    def find_local_map_candidate(self, input_v: int) -> bool:
+        """Candidate search, and the candidate local map built from the
+        winner; False when no candidate exists."""
+        comp = self.find_candidate_composition(input_v)
+        if comp is None:
+            return False
+        self.candidate_local_map.update_to_new_composition(
+            self.mm.get_graph(), comp)
         return True
 
     def find_candidate_composition(self, input_v: int):
@@ -352,11 +355,28 @@ class LoopCloser:
         self._validate_verification_profile(icp)
         self.config = dataclasses.replace(self.config, icp=icp)
 
-    def check_icp_result(self, result: ICPResult, residual: float) -> bool:
+    def check_icp_result(self, result: ICPResult,
+                         residual: Optional[float] = None) -> bool:
+        """Acceptance; without ``residual`` it is recomputed
+        (:meth:`compute_residual_error`)."""
         if result.diverged is not None and bool(result.diverged):
             return False
         if bool(result.max_iter_reached):
             return False
         if float(result.overlap) < self.config.overlap_threshold:
             return False
+        if residual is None:
+            residual = self.compute_residual_error()
         return not residual > self.config.residual_error_threshold
+
+    def compute_residual_error(self) -> float:
+        """The residual of the input keyframe's cloud against the
+        candidate map at ``T_refkf_kf``, matched fresh through both
+        filter chains."""
+        cfg = self.config.icp
+        ref_cloud = self.candidate_local_map.cloud()
+        reading = F.apply_chain(cfg.reading_filters, self.input_cloud)
+        ref = F.apply_chain(reference_chain(cfg, ref_cloud), ref_cloud)
+        T = torch.as_tensor(np.asarray(self.T_refkf_kf, np.float32),
+                            device=ref.device)
+        return float(compute_residual(reading, ref, T, cfg))

@@ -400,3 +400,11 @@ class ICPEngine:
             raise RuntimeError("ICPEngine: set_map() must be called first")
         return icp_core(self.prepare_reading(reading), self._reference,
                         T_init, self.config, self.index)
+
+
+def icp(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
+        cfg: ICPConfig = ICPConfig()) -> ICPResult:
+    """One-shot registration: both filter chains, then the loop."""
+    engine = ICPEngine(cfg)
+    engine.set_map(reference)
+    return engine(reading, T_init)

@@ -20,6 +20,19 @@ from .optim.pgo import PGOConfig, optimize_pose_graph
 log = logging.getLogger("pgslam_tpu_torch.optimizer")
 
 
+def pm_cov_to_gtsam_cov(mat: np.ndarray) -> np.ndarray:
+    """Swap the 3x3 blocks of a 6x6 covariance (or a stack of them):
+    libpointmatcher's [t; r] order to GTSAM's [r; t]. Its own inverse.
+    The port's solver reads [t; r] natively, so no path converts; this
+    is for interchange with GTSAM-ordered data."""
+    out = np.empty_like(mat)
+    out[..., :3, :3] = mat[..., 3:, 3:]
+    out[..., 3:, 3:] = mat[..., :3, :3]
+    out[..., 3:, :3] = mat[..., :3, 3:]
+    out[..., :3, 3:] = mat[..., 3:, :3]
+    return out
+
+
 def _bucket(n: int, bucket: int) -> int:
     """Next power of two, at least ``bucket``."""
     return max(bucket, 1 << max(0, n - 1).bit_length())

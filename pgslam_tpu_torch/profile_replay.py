@@ -1,6 +1,6 @@
 """Where a replay's or a large-graph optimize's time goes on the GPU.
 
-    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|long|yaml_clover|p2plane|grid|corridor_64k_lag2|loop_lag2|loop_stream4|pgo_1k|pgo_16k] [--trace DIR]
+    python -m pgslam_tpu_torch.profile_replay [loop|corridor_64k|long|yaml_clover|p2plane|grid|corridor_64k_lag2|loop_lag2|loop_stream4|pgo_1k|pgo_16k] [--trace DIR] [--fused-single]
 
 Runs the replay (or one ``optimize_pose_graph`` of the pose-graph problem
 under ``solver="pcg_pallas"`` and the default ``PGOConfig``: the LM loop
@@ -14,7 +14,8 @@ the profiler's own host overhead included), the device's busy time and
 idle share over the run, the device-side events (kernels, copies) per
 unit, and the device time by kernel, with the port's own kernels (K1-K4)
 marked. ``--trace`` also writes a Chrome trace into DIR (tens of MB per
-replay).
+replay). ``--fused-single`` turns the single-scan K2 route on
+(``localizer.FUSED_SINGLE``, as ``PGSLAM_FUSED_SINGLE=1`` does).
 """
 
 from __future__ import annotations
@@ -38,18 +39,24 @@ def _kernel_label(name: str) -> str:
     return "torch"
 
 
-def profile(name: str, trace_dir=None) -> dict:
+def profile(name: str, trace_dir=None, fused_single: bool = False) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from . import localizer
     dev = torch.device("cuda", 0)
-    _drive(name, dev)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        unit, n, extra = _drive(name, dev)
-        wall = time.perf_counter() - t0
+    saved, localizer.FUSED_SINGLE = localizer.FUSED_SINGLE, (
+        fused_single or localizer.FUSED_SINGLE)
+    try:
+        _drive(name, dev)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            unit, n, extra = _drive(name, dev)
+            wall = time.perf_counter() - t0
+    finally:
+        localizer.FUSED_SINGLE = saved
     rows = []   # device-side events only: kernels, memcpy, memset
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
@@ -65,7 +72,8 @@ def profile(name: str, trace_dir=None) -> dict:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir,
                                               f"trace_{name}.json"))
-    return {"run": name, "unit": unit, "units": n,
+    return {"run": name, "fused_single": localizer.FUSED_SINGLE
+            or fused_single, "unit": unit, "units": n,
             "wall_ms_per_unit": 1e3 * wall / n,
             "device_busy_ms_per_unit": busy_ms / n,
             "device_idle_share": 1.0 - busy_ms / (1e3 * wall),
@@ -101,6 +109,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("replays", nargs="*", default=["corridor_64k", "loop"])
     ap.add_argument("--trace", default=None)
+    ap.add_argument("--fused-single", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_replay needs a CUDA GPU")
@@ -108,7 +117,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     for name in args.replays:
-        print(json.dumps(profile(name, args.trace), indent=1), flush=True)
+        print(json.dumps(profile(name, args.trace, args.fused_single),
+                         indent=1), flush=True)
     return 0
 
 

@@ -775,3 +775,56 @@ def test_from_yaml_on_the_card_launches_k1_and_k3(cuda):
     torch.cuda.synchronize()
     assert slam.n_loop_edges() >= 1
     assert knn.launches > k1 and lm_optimize.launches > k3
+
+
+def _loop_scans(device, n, route_on, monkeypatch):
+    """The first ``n`` scans of the golden loop with the single-scan route
+    on or off; (per-scan poses, K2 launches)."""
+    from pgslam_tpu_torch import localizer as L
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.slam import PoseGraphSlam
+    monkeypatch.setattr(L, "FUSED_SINGLE", route_on)
+    monkeypatch.setattr(L, "FUSED_SINGLE_DEVICES", ("cuda", "cpu"))
+    scans, odom, _ = replays.loop_sequence_golden()
+    slam = PoseGraphSlam(replays.loop_config(), device=device)
+    T_rs = np.eye(4, dtype=np.float32)
+    before, poses = fused_icp_register.launches, []
+    for i in range(n):
+        slam.add_data(i, "world", odom[i], T_rs, scans[i])
+        poses.append(slam.localizer.T_world_robot.copy())
+    return np.stack(poses), fused_icp_register.launches - before
+
+
+def test_single_route_launches_k2_once_a_scan(cuda, monkeypatch):
+    """PGSLAM_FUSED_SINGLE on the card: one K2 launch a scan, poses within
+    1 mm of the route's plain version on the CPU over the first scans."""
+    card, launches = _loop_scans(cuda, 12, True, monkeypatch)
+    assert launches == 11
+    cpu, _ = _loop_scans("cpu", 12, True, monkeypatch)
+    gap = np.linalg.norm(card[:, :3, 3] - cpu[:, :3, 3], axis=1)
+    assert gap.max() < 1e-3, gap
+    _, off = _loop_scans(cuda, 12, False, monkeypatch)
+    assert off == 0
+
+
+@pytest.mark.parametrize("env,launches", [(None, 1), ("0", 0), ("1", 1)])
+def test_verify_route_on_card(cuda, monkeypatch, env, launches):
+    """The synchronous verification on the card: K2 under "auto" and "1",
+    ``icp_core`` under PGSLAM_FUSED_BATCHED=0."""
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.loopcloser import verify
+    if env is None:
+        monkeypatch.delenv("PGSLAM_FUSED_BATCHED", raising=False)
+    else:
+        monkeypatch.setenv("PGSLAM_FUSED_BATCHED", env)
+    scans, odom, _ = replays.loop_sequence_golden()
+    T0 = (np.linalg.inv(odom[39].astype(np.float64))
+          @ odom[40].astype(np.float64)).astype(np.float32)
+    before = fused_icp_register.launches
+    packed = verify(make_cloud(scans[40], device=cuda),
+                    make_cloud(scans[39], device=cuda),
+                    torch.as_tensor(T0, device=cuda),
+                    replays.loop_config().loop_closer.icp)
+    torch.cuda.synchronize()
+    assert fused_icp_register.launches - before == launches
+    assert bool(torch.isfinite(packed[:57]).all())
