@@ -76,7 +76,9 @@ failure, and prints the final JSON line only when every phase passed):
    (``replay_p2plane``: RandomSampling, ObservationDirection, MaxDist,
    normals at k = 10), twice for the same bits, held to the truth; the
    loop on the grid matcher (``replay_grid``) against
-   ``golden_replay_grid.npz``; and the loop checkpointed at scan 35 and
+   ``golden_replay_grid.npz``, with its first local-map composition or
+   keyframe count off the JAX run's (``golden_replay_grid_eval.npz``)
+   and the overlaps there; and the loop checkpointed at scan 35 and
    resumed by a fresh facade (``resume``), with its KITTI, TUM and PLY
    files read back. Phase k1 also checks the YAML replays' shapes (1024
    x 3072 k = 1, 3072 x 3072 k = 10) and k = 16;
@@ -90,17 +92,39 @@ failure, and prints the final JSON line only when every phase passed):
    loop's scans streamed through ``ScanLoader`` from KITTI files and
    replayed, and the native Dijkstra against the Python heap on that
    replay's graph. Phase k2 also checks the route's shape, 1 x 512 vs
-   1536.
+   1536;
+10. the resident mirror (``optim/resident.py``, the default optimize
+   path, which every earlier replay and fleet phase already takes), each
+   sequence with the mirror and with the classic upload
+   (``resident="off"``), timed, then again counting the synchronizing
+   CUDA calls of each optimize (``torch.cuda.set_sync_debug_mode``):
+   ``resident_loop`` (the golden loop), ``resident_growth`` (a ring like
+   ``pgo_1k``'s growing from 512 keyframes over 16 optimizes, loop
+   constraints queued, a host pose write, a bucket crossing) and
+   ``resident_16k`` (``pgo_16k`` through the K4 loop with the quat7
+   writeback, and once more with exact12): the same K3 and K4 launches,
+   the poses after every optimize bit-equal to the classic path's (or
+   within its own repeat gap, plus quat7's round-off), one
+   synchronization (the fetch) per resident optimize on K3; optimizes,
+   rebuilds and deltas, bytes up and down and ms per optimize both
+   ways. A handler on the optimizer's logger fails the run if any
+   resident optimize of any phase fell back to the classic path. Phase
+   k4 also times pgo_16k padded as the Optimizer pads it.
 
-The launch counters are zeroed before each of the paths 3-9 and read
+The launch counters are zeroed before each of the paths 3-10 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
 B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4, K1-K3, K1-K3
-with K2 at B = 1 only), and the launches line gives each
+with K2 at B = 1 only, K3 and K4), and the launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
 checked and timed, and its most-launched K4 shapes, every one of which
 must be one of phase k4's cases, with its mean CG steps a K4 launch. The
 second-to-last line is the per-kernel JSON summary; the last is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --resident
+
+builds the kernels and runs only path 10, the resident mirror's three
+phases (about a minute).
 
     python3 chip_smoke.py --crossover
 
@@ -153,6 +177,7 @@ call on one card.
 """
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -250,6 +275,9 @@ LONG_COUNTS = {"n_keyframes": 50, "n_loops": 3, "opt_runs": 3}
 # A replay run departs from another at the first scan more than this
 # apart (phase_replay_witness).
 WITNESS_TOL_M = 1e-4
+# replay_grid prints this many scans whose ICP iterations differ from the
+# JAX run's (scan:card/JAX).
+ICP_STOPS_SHOWN = 4
 # The point-to-plane replay draws RandomSampling's keep masks from torch
 # generators, not Threefry, so it is held to the truth: its largest
 # per-scan error below the JAX package's run's (golden_replay_p2plane.npz)
@@ -271,6 +299,23 @@ FUSED1_LOOP_TOL_M = 0.20
 # The native phase: the loop's scans streamed through ScanLoader from
 # this many KITTI files.
 NATIVE_SCANS = 70
+# The resident mirror's phases. resident_growth: a ring like pgo_1k's,
+# RESIDENT_GROWTH_START keyframes, RESIDENT_GROWTH_APPEND more before each
+# later optimize, RESIDENT_GROWTH_LOOPS loop constraints queued per
+# optimize, one host pose write before optimize RESIDENT_DIRTY_AT.
+RESIDENT_GROWTH_START = 512
+RESIDENT_GROWTH_CALLS = 16
+RESIDENT_GROWTH_APPEND = 32
+RESIDENT_GROWTH_LOOPS = 2
+RESIDENT_DIRTY_AT = 8
+# resident_16k's writeback (quat7) against the classic path's poses, on
+# top of the limits the K4 loop is held to against itself (its index_add_
+# sums use atomics, so its runs differ; PGO_LIMITS for pgo_16k and
+# K3_ROT_TOL): quat7's round-off. On the CPU its round trip of pgo_16k's
+# poses moved rotations by at most 3.41e-7 rad (4.77e-7 in a matrix
+# entry) and translations by nothing.
+QUAT7_ROT_TOL = 1e-6      # rotation matrix entries
+QUAT7_TRANS_TOL = 0.0
 K4_X_RTOL = 1e-3          # of max|x_plain|: fp32 CG with another sum order
 K4_RESIDUAL_FACTOR = 1.5  # |A x + b| / |b| <= this * sqrt(cg_tol)
 # The pgo phase holds each route to its plain loop: poses (m) and final
@@ -1315,15 +1360,17 @@ def lm_bound(V: int, E: int, lm_iterations: int, cg_steps: int):
     return bound(nbytes, flops)
 
 
-K4_CASES = ("pgo_1k", "pgo_16k", "loop_64")
+K4_CASES = ("pgo_1k", "pgo_16k", "loop_64", "pgo_16k_padded")
 # Padded graphs, (poses, loop edges) padded as Optimizer pads them.
 # loop_64 is the graph of the loop replay's optimize (20 keyframes, 19
 # odometry edges and one loop edge; 64 poses, 64 edges), the shape the
-# replay under pcg_pallas launches K4 at; the others are the next buckets
-# of a growing map (4, 8 and 16 vertex tiles), which --k4-layouts also
-# times.
+# replay under pcg_pallas launches K4 at; pgo_16k_padded is pgo_16k as
+# Optimizer sends it (20479 edges padded to 32768), the shape of phase
+# resident_16k; the others are the next buckets of a growing map (4, 8
+# and 16 vertex tiles), which --k4-layouts also times.
 K4_PADDED = {"loop_64": (20, 1), "padded_128": (100, 10),
-             "padded_256": (200, 20), "padded_512": (400, 40)}
+             "padded_256": (200, 20), "padded_512": (400, 40),
+             "pgo_16k_padded": (16384, 4096)}
 # The two systems phase k4 times K4 at: one LM step's system at the
 # initial poses under the default PGOConfig (cg_tol 1e-4, 4-6 steps), and
 # the same system run to exactly cg_iterations = 64 steps (cg_tol 0), the
@@ -1968,7 +2015,8 @@ def phase_mt_loop(dev):
 def _brief(stats) -> dict:
     """A replay's stats without its per-scan records."""
     return {k: v for k, v in stats.items() if "seconds" not in k
-            and k not in ("compositions", "overlaps")}
+            and k not in ("compositions", "overlaps", "keyframes",
+                          "iterations")}
 
 
 def _counts_equal(stats, fix, keys=("n_keyframes", "n_loops")):
@@ -2141,16 +2189,53 @@ def phase_replay_p2plane(dev):
 
 def phase_replay_grid(dev):
     """The golden loop on the grid matcher against the JAX package's run
-    (golden_replay_grid.npz): equal counts, every scan within
-    POSE_TOL_M."""
+    (golden_replay_grid.npz): equal counts, every scan within POSE_TOL_M.
+    Printed beside: the first scan whose local-map composition or
+    keyframe count leaves the JAX run's (golden_replay_grid_eval.npz),
+    the registration overlaps there against the keyframe threshold
+    (LocalizerConfig.overlap_threshold) and the two compositions, and the
+    largest gap before that scan; and the first scans whose registration
+    took another number of ICP iterations than the JAX run's (where the
+    convergence checker stopped on the other side of its eps;
+    ``scripts/grid_replay_stops.py`` prints the checker's margins)."""
     from pgslam_tpu_torch import replays
     per_scan, _, stats = replays.run_replay("grid", device=dev, sync=_sync)
     fix = replays.fixture("grid")
     gap = replays.max_pose_gap(per_scan, fix["per_scan_poses"])
     ms = 1e3 * float(np.mean(stats["scan_seconds"]))
+    fev = np.load(os.path.join(replays.FIXTURES,
+                               "golden_replay_grid_eval.npz"))
+    jax_comps = [tuple(c[c >= 0]) for c in fev["compositions"]]
+    decide = _first_comp_change(stats["compositions"], jax_comps)
+    kf_off = _first_above(np.abs(np.asarray(stats["keyframes"])
+                                 - fev["keyframes"]), 0)
+    first = min((i for i in (decide, kf_off) if i is not None),
+                default=None)
+    its = np.array([-1 if i is None else i for i in stats["iterations"]])
+    icp_off = np.flatnonzero(its != fev["iterations"])[:ICP_STOPS_SHOWN]
+    threshold = replays.grid_config().localizer.overlap_threshold
+    at = lambda a, i: None if i is None or a[i] is None \
+        else round(float(a[i]), 5)
     line("replay_grid", scans=len(per_scan), **_counts_line(stats, fix),
          first_scan_off_fixture=_first_above(replays.per_scan_gaps(
              per_scan, fix["per_scan_poses"]), WITNESS_TOL_M),
+         first_decision_off_fixture=first,
+         first_composition_off=decide, first_keyframe_count_off=kf_off,
+         overlap_there=at(stats["overlaps"], first),
+         fixture_overlap_there=at(fev["overlaps"], first),
+         overlap_threshold=threshold,
+         fixture_margin_there=(None if first is None else round(
+             float(fev["overlaps"][first]) - threshold, 5)),
+         composition_there=(None if first is None else
+                            "-".join(map(str, stats["compositions"][first]))),
+         fixture_composition_there=(None if first is None else
+                                    "-".join(map(str, jax_comps[first]))),
+         gap_before_it_m=round(replays.max_pose_gap(
+             per_scan[:first], fix["per_scan_poses"][:first])
+             if first else 0.0, 5),
+         icp_iterations_off_fixture=",".join(
+             f"{i}:{its[i]}/{fev['iterations'][i]}" for i in icp_off)
+         or None,
          max_gap_m=round(gap, 5), ms_per_scan=round(ms, 3))
     if not (np.isfinite(per_scan).all() and gap <= POSE_TOL_M
             and _counts_equal(stats, fix, ("n_keyframes", "n_loops",
@@ -2252,7 +2337,8 @@ class _PlainRoutes:
             plain = lambda q, qm, r, rm, k=1: knn.knn_plain(q, qm, r, rm, k)
             self.patches += [(icp, "knn", plain), (filters, "knn", plain)]
         if k3:
-            self.patches.append((lm, "lm_optimize", lambda *a, config:
+            self.patches.append((lm, "lm_optimize",
+                                 lambda *a, config, ptr_host=None:
                                  pgo.lm_optimize_plain(*a, config=config)))
         self.saved = []
 
@@ -2278,20 +2364,26 @@ class _RecordLM:
         self.problems = []
 
     def __enter__(self):
+        # The classic path calls optimizer.optimize_pose_graph, the
+        # resident mirror pgo.optimize_pose_graph: one record an optimize.
         from pgslam_tpu_torch import optimizer
-        self.mod, self.orig = optimizer, optimizer.optimize_pose_graph
+        from pgslam_tpu_torch.optim import pgo
+        orig = pgo.optimize_pose_graph
+        self.saved = [(optimizer, optimizer.optimize_pose_graph),
+                      (pgo, orig)]
 
-        def record(*args, robust_emask=None, config):
+        def record(*args, robust_emask=None, config, **kw):
             self.problems.append(([a.detach().cpu() if hasattr(a, "detach")
                                    else a for a in args + (robust_emask,)],
                                   config))
-            return self.orig(*args, robust_emask=robust_emask,
-                             config=config)
-        optimizer.optimize_pose_graph = record
+            return orig(*args, robust_emask=robust_emask, config=config,
+                        **kw)
+        optimizer.optimize_pose_graph = pgo.optimize_pose_graph = record
         return self
 
     def __exit__(self, *exc):
-        self.mod.optimize_pose_graph = self.orig
+        for mod, fn in self.saved:
+            mod.optimize_pose_graph = fn
 
 
 def witness_k3(dev, name, problems, out_dir):
@@ -2595,6 +2687,487 @@ def phase_native(dev):
                              f"from {agree} of {n} sources")
 
 
+# --------------------------------------------------------------------------
+# The resident mirror (optim/resident.py): the default optimize path
+# --------------------------------------------------------------------------
+
+class _OptimizeProbe:
+    """Per optimize (``Optimizer.process_data``) while active: which path
+    ran (the mirror or the classic upload), the mirror's rebuild flag, the
+    bytes uploaded and fetched, the K3 and K4 launches, ms to the end of
+    the writeback with one synchronize after it, the host ms of its
+    prepare (the snapshot before any device work) and the graph's poses
+    after it. ``kind`` "count" also counts the synchronizing CUDA calls
+    from its start to the writeback (``torch.cuda.set_sync_debug_mode
+    ("warn")``; the localizer's resync after the writeback is not the
+    optimize's), and "inputs" keeps host copies of the solve's inputs
+    (``optimize_pose_graph``'s arguments); neither belongs in a timed
+    run."""
+
+    KINDS = ("time", "count", "inputs")
+
+    def __init__(self, kind: str = "time"):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown probe kind {kind!r}")
+        self.count_syncs = kind == "count"
+        self.keep_inputs = kind == "inputs"
+        self.records = []
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+        from pgslam_tpu_torch import optimizer
+        from pgslam_tpu_torch.optim import pgo, resident
+        from pgslam_tpu_torch.optim.lm import lm_optimize
+        from pgslam_tpu_torch.optim.pcg import pcg_solve
+        cls, mirror = optimizer.Optimizer, resident.ResidentPGO
+        self.saved = [(cls, n, getattr(cls, n)) for n in (
+            "process_data", "update_after_optimization",
+            "prepare_for_optimization",
+            "prepare_for_optimization_resident")] + [
+                (mirror, "execute", mirror.execute),
+                (optimizer, "optimize_pose_graph",
+                 optimizer.optimize_pose_graph),
+                (pgo, "optimize_pose_graph", pgo.optimize_pose_graph)]
+        orig = {n: f for _, n, f in self.saved}
+        probe = self
+
+        def stop_counting(rec):
+            if rec.get("_warn") is not None:
+                torch.cuda.set_sync_debug_mode(0)
+                caught = rec.pop("_warn")
+                rec["_cm"].__exit__(None, None, None)
+                rec["syncs"] = sum("synchronizing CUDA operation"
+                                   in str(w.message) for w in caught)
+
+        def process_data(opt):
+            rec = {"path": None, "rebuild": None, "syncs": None,
+                   "_warn": None}
+            probe._rec = rec
+            k3, k4 = lm_optimize.launches, pcg_solve.launches
+            if probe.count_syncs:
+                rec["_cm"] = warnings.catch_warnings(record=True)
+                rec["_warn"] = rec["_cm"].__enter__()
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                orig["process_data"](opt)
+                torch.cuda.synchronize()
+            finally:
+                stop_counting(rec)
+            rec["ms"] = 1e3 * (time.perf_counter() - t0)
+            rec["k3"] = lm_optimize.launches - k3
+            rec["k4"] = pcg_solve.launches - k4
+            g = opt.mm.get_graph()
+            rec["poses"] = g.optimized_poses[:g.n_vertices].copy()
+            rec.pop("_cm", None)
+            probe.records.append(rec)
+
+        def update_after_optimization(opt, new_poses):
+            stop_counting(probe._rec)
+            if probe._rec["path"] == "classic":
+                probe._rec["download"] = (new_poses.nbytes
+                                          + 4 * len(opt.last_stats))
+            return orig["update_after_optimization"](opt, new_poses)
+
+        def prepare_for_optimization(opt):
+            t0 = time.perf_counter()
+            args, rmask = orig["prepare_for_optimization"](opt)
+            probe._rec.update(path="classic", upload=sum(
+                t.nelement() * t.element_size() for t in args[:7]
+                + ((rmask,) if rmask is not None else ())),
+                prepare_ms=1e3 * (time.perf_counter() - t0))
+            return args, rmask
+
+        def prepare_for_optimization_resident(opt):
+            t0 = time.perf_counter()
+            prep = orig["prepare_for_optimization_resident"](opt)
+            probe._rec["prepare_ms"] = 1e3 * (time.perf_counter() - t0)
+            return prep
+
+        def execute(m, prep):
+            out = orig["execute"](m, prep)
+            probe._rec.update(path="resident", rebuild=prep.rebuild,
+                              upload=m.last_upload_bytes,
+                              download=m.last_download_bytes)
+            return out
+
+        def solve(*args, robust_emask=None, config, **kw):
+            # The classic path calls optimizer.optimize_pose_graph, the
+            # mirror pgo.optimize_pose_graph: the same function.
+            if probe.keep_inputs:
+                probe._rec["inputs"] = [
+                    np.array(a.detach().cpu()) if torch.is_tensor(a) else a
+                    for a in args + (robust_emask,)]
+            return orig["optimize_pose_graph"](
+                *args, robust_emask=robust_emask, config=config, **kw)
+
+        for owner, name, fn in (
+                (optimizer, "optimize_pose_graph", solve),
+                (pgo, "optimize_pose_graph", solve),
+                (cls, "process_data", process_data),
+                (cls, "update_after_optimization",
+                 update_after_optimization),
+                (cls, "prepare_for_optimization", prepare_for_optimization),
+                (cls, "prepare_for_optimization_resident",
+                 prepare_for_optimization_resident),
+                (mirror, "execute", execute)):
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def _resident_summary(records, label):
+    """Counts and means over one run's optimizes (one path)."""
+    path = {r["path"] for r in records}
+    if len(path) != 1:
+        raise AssertionError(f"{label}: optimizes on {path}")
+    mean = lambda k, rs=records: (None if not rs else
+                                  float(np.mean([r[k] for r in rs])))
+    deltas = [r for r in records if r["rebuild"] is False]
+    return {"path": path.pop(), "optimizes": len(records),
+            "rebuilds": sum(r["rebuild"] is True for r in records),
+            "deltas": len(deltas), "ms": mean("ms"),
+            "prepare_ms": mean("prepare_ms"),
+            "upload_bytes": mean("upload"),
+            "delta_upload_bytes": mean("upload", deltas),
+            "download_bytes": mean("download"),
+            "k3": sum(r["k3"] for r in records),
+            "k4": sum(r["k4"] for r in records)}
+
+
+def _resident_gap(a, b):
+    """Largest translation (m) and rotation-entry gap between the poses
+    after each optimize of two runs of one sequence."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} against {len(b)} optimizes")
+    t = max(float(np.abs(x["poses"][:, :3, 3] - y["poses"][:, :3, 3]).max())
+            for x, y in zip(a, b))
+    r = max(float(np.abs(x["poses"][:, :3, :3]
+                         - y["poses"][:, :3, :3]).max())
+            for x, y in zip(a, b))
+    return t, r
+
+
+def _resident_compare(label, run, syncs_ok, trans_tol, rot_tol):
+    """``run(mode, kind)`` -> :class:`_OptimizeProbe` records of one
+    sequence, ``mode`` "auto" (the mirror) or "off" (the classic
+    upload). First each path once keeping the solve's inputs (these runs
+    also warm up: a kernel's first launch loads it, the first pinned
+    buffers are allocated), then the classic path and the mirror timed,
+    then the mirror and the classic path counting synchronizations.
+    Held: every optimize on its path, equal K3 and K4 launches, the
+    solve's inputs bit-equal both ways at every optimize (the mirror's
+    contract: a rebuild's bits), the poses after every optimize
+    bit-equal where the classic path repeats its own bits (K3), else
+    within ``trans_tol`` (m) and ``rot_tol`` (rotation entries) of it
+    (the K4 loop's index_add_ sums with atomics), every resident
+    optimize's synchronizations ``syncs_ok``. Printed: the repeat gaps of
+    each path, optimizes, rebuilds and deltas, bytes up and down, host
+    prepare ms, ms per optimize and synchronizations, both ways."""
+    res_i, cls_i = run("auto", "inputs"), run("off", "inputs")
+    cls, res = run("off", "time"), run("auto", "time")
+    res_n, cls_n = run("auto", "count"), run("off", "count")
+    sr, sc = _resident_summary(res, label), _resident_summary(cls, label)
+    inputs_equal = len(res_i) == len(cls_i) and all(
+        len(a["inputs"]) == len(b["inputs"]) and all(
+            (x is None and y is None) or np.array_equal(x, y)
+            for x, y in zip(a["inputs"], b["inputs"]))
+        for a, b in zip(res_i, cls_i))
+    repeat = [_resident_gap(cls, cls_n), _resident_gap(res, res_n)]
+    repeats = all(t == r == 0.0 for t, r in repeat)
+    cross = [_resident_gap(res, cls), _resident_gap(res_i, cls_i)]
+    gap_t, gap_r = (max(g[0] for g in cross), max(g[1] for g in cross))
+    bits = gap_t == gap_r == 0.0 and all(
+        np.array_equal(x["poses"], y["poses"]) for x, y in zip(res, cls))
+    syncs_res = [r["syncs"] for r in res_n]
+    syncs_cls = [r["syncs"] for r in cls_n]
+    line(label, optimizes=sr["optimizes"], rebuilds=sr["rebuilds"],
+         deltas=sr["deltas"], k3_launches=f"{sr['k3']}/{sc['k3']}",
+         k4_launches=f"{sr['k4']}/{sc['k4']}",
+         solve_inputs_bit_equal=inputs_equal, poses_bit_equal=bits,
+         gap_m=gap_t, rot_gap=gap_r,
+         classic_repeat_gap_m=repeat[0][0],
+         classic_repeat_rot_gap=repeat[0][1],
+         resident_repeat_gap_m=repeat[1][0],
+         upload_bytes_per_optimize=round(sr["upload_bytes"]),
+         delta_upload_bytes_per_optimize=(
+             None if sr["delta_upload_bytes"] is None
+             else round(sr["delta_upload_bytes"])),
+         classic_upload_bytes_per_optimize=round(sc["upload_bytes"]),
+         download_bytes_per_optimize=round(sr["download_bytes"]),
+         classic_download_bytes_per_optimize=round(sc["download_bytes"]),
+         ms_per_optimize=round(sr["ms"], 3),
+         classic_ms_per_optimize=round(sc["ms"], 3),
+         prepare_ms_per_optimize=round(sr["prepare_ms"], 3),
+         classic_prepare_ms_per_optimize=round(sc["prepare_ms"], 3),
+         syncs_per_optimize=",".join(map(str, sorted(set(syncs_res)))),
+         classic_syncs_per_optimize=",".join(
+             map(str, sorted(set(syncs_cls)))),
+         ms_each=",".join(f"{r['ms']:.3f}" for r in res),
+         classic_ms_each=",".join(f"{r['ms']:.3f}" for r in cls))
+    ok = (sr["path"] == "resident" and sc["path"] == "classic"
+          and _resident_summary(res_n, label)["path"] == "resident"
+          and _resident_summary(cls_i, label)["path"] == "classic"
+          and sr["optimizes"] == sc["optimizes"] > 0
+          and (sr["k3"], sr["k4"]) == (sc["k3"], sc["k4"])
+          and all(np.isfinite(r["poses"]).all() for r in res)
+          and inputs_equal
+          and (bits if repeats else (gap_t <= trans_tol
+                                     and gap_r <= rot_tol))
+          and all(syncs_ok(n) for n in syncs_res))
+    if not ok:
+        raise AssertionError(f"{label}: resident {sr}, classic {sc}, solve "
+                             f"inputs equal {inputs_equal}, gap {gap_t} m / "
+                             f"{gap_r} (repeats {repeat}), syncs "
+                             f"{syncs_res}")
+    return {"resident": sr, "classic": sc, "gap_m": gap_t, "bits": bits,
+            "syncs": syncs_res, "classic_syncs": syncs_cls}
+
+
+def phase_resident_loop(dev):
+    """The golden loop through ``PoseGraphSlam`` with the mirror and with
+    the classic path (:func:`_resident_compare`): the same K3 launches,
+    the poses after every optimize bit-equal (or within the classic
+    path's repeat gap), one synchronization (the fetch) per resident
+    optimize; the replay's per-scan poses equal both ways."""
+    import dataclasses
+
+    from pgslam_tpu_torch import replays
+    cfg = replays.loop_config()
+    scans = {}
+
+    def run(mode, kind):
+        c = dataclasses.replace(cfg, optimizer=dataclasses.replace(
+            cfg.optimizer, resident=mode))
+        with _OptimizeProbe(kind) as probe:
+            scans[(mode, kind)] = replays.run_replay(
+                "loop", device=dev, sync=_sync, config=c)[0]
+        return probe.records
+
+    out = _resident_compare("resident_loop", run, lambda n: n == 1,
+                            K3_POSE_TOL_M, K3_ROT_TOL)
+    per_scan = scans[("auto", "time")]
+    same = bool(np.array_equal(per_scan, scans[("off", "time")]))
+    gap = replays.max_pose_gap(per_scan,
+                               replays.fixture("loop")["per_scan_poses"])
+    line("resident_loop_replay", per_scan_bit_equal_to_classic=same,
+         max_gap_to_fixture_m=round(gap, 5))
+    if not (gap < POSE_TOL_M and (same or not out["bits"])):
+        raise AssertionError(f"resident_loop: replay gap {gap}, classic "
+                             f"bits {same}")
+    return out
+
+
+def _growth_graph(total: int, seed: int):
+    """A ring like pgo_1k's (``pgo_problems``) of ``total`` poses: the
+    true poses, the perturbed initial ones and the odometry measurements
+    (true relative poses)."""
+    import torch
+    from pgslam_tpu_torch import se3
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(total) / total
+    radius = 10.0 * max(1.0, total / 1024)
+    R = se3.exp_so3(torch.as_tensor(np.stack(
+        [np.zeros(total), np.zeros(total), ang], -1), dtype=torch.float32))
+    t = torch.as_tensor(np.stack([radius * np.cos(ang), radius * np.sin(ang),
+                                  np.zeros(total)], -1), dtype=torch.float32)
+    truth = se3.make(R, t).numpy()
+    init = truth.copy()
+    init[1:] = init[1:] @ se3.exp(torch.as_tensor(
+        rng.normal(size=(total - 1, 6)) * 0.05,
+        dtype=torch.float32)).numpy()
+    return truth, init
+
+
+def resident_growth_run(dev):
+    """``run(mode, kind)`` of :func:`phase_resident_growth`'s sequence: a
+    ring like pgo_1k's (RESIDENT_GROWTH_START keyframes, then
+    RESIDENT_GROWTH_APPEND more with odometry edges before each later
+    optimize, RESIDENT_GROWTH_LOOPS queued loop constraints per optimize,
+    one host pose write before optimize RESIDENT_DIRTY_AT) over
+    RESIDENT_GROWTH_CALLS optimizes with ``OptimizerConfig(resident=
+    mode)``, under an :class:`_OptimizeProbe` of ``kind``; returns its
+    records. ``scripts/resident_profile.py`` profiles it."""
+    from pgslam_tpu_torch.cloud import make_cloud
+    from pgslam_tpu_torch.graph.pose_graph import MapManager
+    from pgslam_tpu_torch.optimizer import Optimizer, OptimizerConfig
+    total = RESIDENT_GROWTH_START + (RESIDENT_GROWTH_CALLS - 1) \
+        * RESIDENT_GROWTH_APPEND
+    truth, init = _growth_graph(total, seed=3)
+    cov = np.eye(6, dtype=np.float32) * 0.01
+    cloud = make_cloud(np.zeros((1, 3), np.float32), device=dev)
+
+    class _NoLoopCloser:
+        def add_new_vertex(self, v):
+            pass
+
+    def rel(a, b):
+        return (np.linalg.inv(truth[a].astype(np.float64))
+                @ truth[b]).astype(np.float32)
+
+    def run(mode, kind):
+        rng = np.random.default_rng(4)
+        mm = MapManager()
+        mm.set_loop_closer(_NoLoopCloser())
+        opt = Optimizer(mm, OptimizerConfig(resident=mode), device=dev)
+        opt.queue_mode = True
+        mm.add_first_keyframe(cloud, init[0])
+        n = 1
+        with _OptimizeProbe(kind) as probe:
+            for call in range(RESIDENT_GROWTH_CALLS):
+                target = RESIDENT_GROWTH_START + call * RESIDENT_GROWTH_APPEND
+                while n < target:
+                    mm.add_new_keyframe(n - 1, init[n], rel(n - 1, n), cov,
+                                        cloud)
+                    n += 1
+                if call == RESIDENT_DIRTY_AT:
+                    g = mm.get_graph()
+                    T = g.optimized_poses[n // 2].copy()
+                    T[0, 3] += 0.01
+                    mm.update_keyframe_transform(n // 2, T, mm.now())
+                pairs = set()
+                while len(pairs) < RESIDENT_GROWTH_LOOPS:
+                    a, b = sorted(int(x) for x in rng.integers(0, n, 2))
+                    if b - a > 1 and not mm.get_graph().has_edge(a, b):
+                        pairs.add((a, b))
+                for a, b in sorted(pairs):
+                    opt.add_new_data(a, b, rel(a, b), cov)
+                opt.process_pending()
+        return probe.records
+
+    return run
+
+
+def phase_resident_growth(dev):
+    """:func:`resident_growth_run`'s sequence (K3: V + E stays within
+    K3_MAX_SIZE) through the mirror and the classic path
+    (:func:`_resident_compare`). Bucket crossings rebuild; the other
+    calls upload deltas, against the classic path's whole graph."""
+    run = resident_growth_run(dev)
+    out = _resident_compare("resident_growth", run, lambda n: n == 1,
+                            K3_POSE_TOL_M, K3_ROT_TOL)
+    if out["resident"]["rebuilds"] < 2 or out["resident"]["deltas"] < 1:
+        raise AssertionError(f"resident_growth: {out['resident']}: no "
+                             "bucket crossing rebuilt, or no delta call")
+    return out
+
+
+def _graph_from_problem(arrays):
+    """A MapManager whose graph holds a pose-graph problem's poses and
+    its edges but one: the last loop edge whose vertex pair no other edge
+    joins, returned as the constraint to optimize with (its insert after
+    the optimize passes the graph's duplicate-edge guard). The first
+    V - 1 edges are odometry."""
+    from pgslam_tpu_torch.graph.pose_graph import (LOOP_CONSTRAINT,
+                                                   ODOM_CONSTRAINT,
+                                                   MapManager, PoseGraph)
+    poses, _, ef, et, eT, ec, _ = arrays
+    V, E = len(poses), len(ef)
+    pairs = {}
+    for f, t in zip(ef, et):
+        key = (min(f, t), max(f, t))
+        pairs[key] = pairs.get(key, 0) + 1
+    pending = max(e for e in range(V - 1, E)
+                  if pairs[(min(ef[e], et[e]), max(ef[e], et[e]))] == 1)
+    keep = np.arange(E) != pending
+    g = PoseGraph(initial_vertex_capacity=V, initial_edge_capacity=E)
+    g.n_vertices, g.n_edges = V, E - 1
+    g.poses[:V] = g.optimized_poses[:V] = poses
+    g.clouds = [None] * V
+    g.edge_from[:E - 1], g.edge_to[:E - 1] = ef[keep], et[keep]
+    g.edge_T[:E - 1], g.edge_cov[:E - 1] = eT[keep], ec[keep]
+    g.edge_type[:E - 1] = np.where(np.arange(E)[keep] < V - 1,
+                                   ODOM_CONSTRAINT, LOOP_CONSTRAINT)
+    mm = MapManager()
+    mm.graph, mm.fixed_vertex = g, 0
+    return mm, (int(ef[pending]), int(et[pending]), eT[pending], ec[pending])
+
+
+def phase_resident_16k(dev):
+    """pgo_16k (16384 poses, 20479 edges, one loop edge the pending
+    constraint) through the K4 loop, one optimize each way under the
+    default PGOConfig (50 LM iterations): the mirror with
+    writeback_pack="auto" (quat7 at this size) against the classic path
+    (:func:`_resident_compare`): the solve's inputs bit-equal, the poses
+    within the K4 loop's limits against itself (PGO_LIMITS, K3_ROT_TOL)
+    plus quat7's round-off (QUAT7_TRANS_TOL, QUAT7_ROT_TOL); then the
+    mirror with exact12, for its download bytes. The K4 loop keeps one
+    synchronization per LM iteration."""
+    from pgslam_tpu_torch.optim import pgo
+    from pgslam_tpu_torch.optimizer import Optimizer, OptimizerConfig
+    from pgslam_tpu_torch.pgo_problems import PROBLEMS, _numpy_problem
+    arrays, _ = _numpy_problem(*PROBLEMS["pgo_16k"], seed=1, noise=0.05)
+    V, E = len(arrays[0]), len(arrays[2])
+    if pgo.route(pgo.PGOConfig(), V, 1 << (E - 1).bit_length(),
+                 dev) != "pcg":
+        raise AssertionError("resident_16k: pgo_16k does not take the K4 "
+                             "loop")
+    packs = []
+
+    def run(mode, kind, pack="auto"):
+        mm, (f, t, T, c) = _graph_from_problem(arrays)
+        opt = Optimizer(mm, OptimizerConfig(resident=mode,
+                                            writeback_pack=pack),
+                        device=dev)
+        with _OptimizeProbe(kind) as probe:
+            opt.add_new_data(f, t, T, c)
+        if opt._mirror is not None:
+            packs.append(opt._mirror._st["pack"])
+        return probe.records
+
+    out = _resident_compare(
+        "resident_16k", run, lambda n: n >= 1,
+        PGO_LIMITS[("pgo_16k", "default")][0] + QUAT7_TRANS_TOL,
+        K3_ROT_TOL + QUAT7_ROT_TOL)
+    exact = run("auto", "time", "exact12")[0]
+    quat = out["resident"]
+    line("resident_16k_packs", auto_pack=packs[0],
+         quat7_download_bytes=round(quat["download_bytes"]),
+         exact12_download_bytes=exact["download"],
+         exact12_ms_per_optimize=round(exact["ms"], 3),
+         resident_syncs=",".join(map(str, out["syncs"])),
+         classic_syncs=",".join(map(str, out["classic_syncs"])))
+    if not (packs[:2] == ["quat7", "quat7"] and packs[-1] == "exact12"
+            and exact["download"] > quat["download_bytes"] > 0
+            and exact["k4"] > 0):
+        raise AssertionError(f"resident_16k: packs {packs}, downloads "
+                             f"{exact['download']} / "
+                             f"{quat['download_bytes']}")
+    return out
+
+
+def phase_resident(dev):
+    """The three resident phases."""
+    return {"loop": phase_resident_loop(dev),
+            "growth": phase_resident_growth(dev),
+            "16k": phase_resident_16k(dev)}
+
+
+class _FallbackWatch(logging.Handler):
+    """Every time the optimizer's resident path failed and its batch went
+    the classic way (the reference's fail-soft, which on the card must
+    not hide a broken mirror)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.failures = []
+
+    def emit(self, record):
+        if "resident optimize failed" in record.getMessage():
+            self.failures.append(record.getMessage())
+
+    def check(self, where: str) -> None:
+        if self.failures:
+            raise AssertionError(f"{where}: the resident optimize fell back "
+                                 f"to the classic path: {self.failures}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2628,7 +3201,13 @@ def main() -> int:
     from pgslam_tpu_torch.replays import corridor_64k_sequence
 
     dev = torch.device("cuda", 0)
+    fallbacks = _FallbackWatch()
+    logging.getLogger("pgslam_tpu_torch.optimizer").addHandler(fallbacks)
     phase_device_and_build()
+    if "--resident" in argv:
+        phase_resident(dev)
+        fallbacks.check("resident")
+        return 0
     if "--k4-tree" in argv:
         phase_k4_tree(dev, argv[argv.index("--k4-tree") + 1])
         return 0
@@ -2782,12 +3361,21 @@ def main() -> int:
                              f"K2 batch sizes {fused1_batches})")
     fused1_idle = phase_fused1_idle(dev)
     phase_native(dev)
+    reset()
+    resident_out = phase_resident(dev)
+    resident_path = counts()
+    top_shapes("resident")
+    if resident_path[2] == 0 or resident_path[3] == 0:
+        raise AssertionError(f"a kernel of the resident path never ran "
+                             f"(K1-K4 {resident_path})")
+    fallbacks.check("every path")
     line("launches", per_scan=",".join(map(str, per_scan)),
          pgo=",".join(map(str, pgo_path)), batched=",".join(map(str, batched)),
          fleet=",".join(map(str, fleet)),
          deferred=",".join(map(str, deferred)),
          config=",".join(map(str, config)),
          fused_single=",".join(map(str, fused1)),
+         resident=",".join(map(str, resident_path)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
          deferred_k2_batch_sizes=",".join(
@@ -2805,7 +3393,7 @@ def main() -> int:
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
              "fleet": fleet, "deferred": deferred, "config": config,
-             "fused_single": fused1}
+             "fused_single": fused1, "resident": resident_path}
 
     k1_main = k1_times["2048x8192_k1"]
     k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
@@ -2866,7 +3454,15 @@ def main() -> int:
           "clusters": k3_layout.clusters,
           "pgo_1k_default_ms": k3_1k[1], "pgo_1k_default_plain_ms": k3_1k[2],
           "pgo_1k_default_bound_ms": k3_1k[3][0],
-          "pgo_1k_default_clusters": k3_1k[4].clusters}),
+          "pgo_1k_default_clusters": k3_1k[4].clusters,
+          "resident_ms_per_optimize": {
+              k: {"resident": v["resident"]["ms"],
+                  "classic": v["classic"]["ms"],
+                  "upload_bytes": v["resident"]["upload_bytes"],
+                  "classic_upload_bytes": v["classic"]["upload_bytes"],
+                  "syncs": sorted(set(v["syncs"])),
+                  "classic_syncs": sorted(set(v["classic_syncs"]))}
+              for k, v in resident_out.items()}}),
         ("K4 pcg", "pcg.cu", "pgslam_tpu/optim/pcg_pallas.py:174",
          max(c["err"] for c in k4.values()), k4_16k["ms"],
          k4_16k["plain_ms"], k4_16k["bound"],

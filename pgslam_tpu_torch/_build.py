@@ -151,18 +151,52 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def to_device(arrays, device):
+    """Host arrays as tensors on ``device`` in one copy: packed at 16-byte
+    offsets into one buffer and viewed back as the arrays' dtypes and
+    shapes (the tensors share the buffer's storage, and none shares
+    memory with an array). To the card the buffer is pinned and the copy
+    does not synchronize the stream (a copy from pageable memory waits
+    for the device)."""
+    import numpy as np
+    import torch
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    offsets, n = [], 0
+    for a in arrays:
+        n = -(-n // 16) * 16
+        offsets.append(n)
+        n += a.nbytes
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty(max(n, 1), dtype=torch.uint8, pin_memory=cuda)
+    flat = host.numpy()
+    for a, o in zip(arrays, offsets):
+        flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True) if cuda else host
+    return [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offsets)]
+
+
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t, name: str, dtype, shape=None, device=None) -> None:
-    """Validate a tensor handed to a kernel: device, dtype, shape,
+class KernelDtypeError(TypeError, ValueError):
+    """A tensor of another dtype than its kernel computes in. The kernels
+    are fp32 and no wrapper casts, so fp64 never reaches one quietly;
+    fp64 runs on the CPU through the plain versions."""
+
+
+def require(t, name: str, dtype, shape=None, device=None,
+            kernel: str = "") -> None:
+    """Validate a tensor handed to a kernel (``kernel`` names it in the
+    error): device, dtype (:class:`KernelDtypeError`), shape,
     contiguity."""
+    name = f"{kernel}: {name}" if kernel else name
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        raise KernelDtypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

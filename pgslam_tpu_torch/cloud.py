@@ -54,9 +54,13 @@ class Cloud:
 
 
 def make_cloud(points, mask=None, descriptors=None,
-               capacity: Optional[int] = None, device=None) -> Cloud:
-    """Build a padded float32 cloud from an ``[N, 3]`` array. int16 input
-    is millimetre fixed point and is dequantized here."""
+               capacity: Optional[int] = None, device=None,
+               dtype=torch.float32) -> Cloud:
+    """Build a padded cloud of ``dtype`` (float32, or float64 for the
+    plain paths on the CPU; the kernels take float32) from an ``[N, 3]``
+    array. int16 input is millimetre fixed point and is dequantized
+    here."""
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
     pts = np.asarray(points)
     if pts.ndim != 2 or pts.shape[1] != 3:
         raise ValueError(f"points must be [N, 3], got {pts.shape}")
@@ -65,20 +69,20 @@ def make_cloud(points, mask=None, descriptors=None,
             raise ValueError("int16 (mm fixed-point) clouds cannot carry "
                              "descriptors")
         pts = (pts.astype(np.float32) * np.float32(1.0 / MM_SCALE))
-    pts = pts.astype(np.float32)
+    pts = pts.astype(np_dtype)
     n = pts.shape[0]
     m = np.ones(n, bool) if mask is None else np.asarray(mask, bool)
     capacity = n if capacity is None else capacity
     if n > capacity:
         raise ValueError(f"{n} points exceed capacity {capacity}")
     pad = capacity - n
-    desc = {k: np.asarray(v, np.float32)
+    desc = {k: np.asarray(v, np_dtype)
             for k, v in (descriptors or {}).items()}
     if pad:
-        pts = np.concatenate([pts, np.zeros((pad, 3), np.float32)])
+        pts = np.concatenate([pts, np.zeros((pad, 3), np_dtype)])
         m = np.concatenate([m, np.zeros(pad, bool)])
         desc = {k: np.concatenate(
-            [v, np.zeros((pad,) + v.shape[1:], np.float32)])
+            [v, np.zeros((pad,) + v.shape[1:], np_dtype)])
             for k, v in desc.items()}
     return Cloud(points=torch.as_tensor(pts, device=device),
                  mask=torch.as_tensor(m, device=device),

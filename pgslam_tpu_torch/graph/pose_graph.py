@@ -47,6 +47,12 @@ class PoseGraph:
         self.edge_cov = np.zeros((ec, 6, 6), np.float32)
         self.edge_type = np.zeros((ec,), np.int32)
         self.edge_weight = np.zeros((ec,), np.float32)
+        # Bookkeeping of the resident optimizer (optim/resident.py): the
+        # vertices whose poses were written on the host since its last
+        # upload, and an epoch that any mutation other than an append
+        # (a checkpoint restore) bumps, so that no mirror outlives it.
+        self.pose_dirty: set = set()
+        self.mutation_epoch = 0
 
     def _ensure_vertex_capacity(self, n: int):
         cap = self.poses.shape[0]
@@ -189,16 +195,23 @@ class MapManager:
                             LOOP_CONSTRAINT)
 
     def update_keyframe_transform(self, v: int, T, update_time: int) -> None:
-        """Optimizer writeback of one vertex."""
+        """Host write of one vertex's optimized pose (the resident
+        optimizer uploads it before its next solve)."""
         self.graph.optimized_poses[v] = np.asarray(T, np.float32)
         self.graph.update_times[v] = update_time
+        self.graph.pose_dirty.add(int(v))
 
     def update_keyframe_transforms_bulk(self, poses: np.ndarray,
-                                        update_time: int) -> None:
-        """Optimizer writeback of vertices ``0..len(poses)``."""
+                                        update_time: int,
+                                        mark_dirty: bool = True) -> None:
+        """Writeback of vertices ``0..len(poses)``. ``mark_dirty=False``
+        is the resident optimizer's: the poses came from its device copy,
+        which needs no upload of them."""
         n = len(poses)
         self.graph.optimized_poses[:n] = np.asarray(poses, np.float32)
         self.graph.update_times[:n] = update_time
+        if mark_dirty:
+            self.graph.pose_dirty.update(range(n))
 
     def notify_keyframe_update(self) -> None:
         for localizer in self._localizers:

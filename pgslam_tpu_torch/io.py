@@ -103,6 +103,12 @@ def load_checkpoint(path: str, map_manager: MapManager, localizer=None,
     g.edge_type[:ne] = data["edge_type"]
     g.edge_weight[:ne] = data["edge_weight"]
     g.clouds = [_cloud_from(f"cloud/{v}", data, device) for v in range(nv)]
+    # A restore is not an append: no resident optimizer's device copy may
+    # survive it. Every restored graph lands at epoch 1, and a new graph
+    # object can reuse a freed one's id(), so mirrors also key on a
+    # per-object token (optim/resident.py::_graph_token); the bump covers
+    # a restore into the same object.
+    g.mutation_epoch += 1
     map_manager.graph = g
     fixed = int(data["fixed_vertex"])
     map_manager.fixed_vertex = None if fixed < 0 else fixed

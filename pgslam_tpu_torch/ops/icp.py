@@ -255,7 +255,7 @@ class _Anderson:
 def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
               max_iterations: int, index):
     L = max(1, cfg.smooth_length)
-    dts = torch.full((L,), float("inf"), device=T0.device)
+    dts = torch.full((L,), float("inf"), dtype=T0.dtype, device=T0.device)
     drs = dts.clone()
     aa = (_Anderson(T0, cfg.anderson_m)
           if cfg.anderson_m and cfg.anderson_m > 1 else None)
@@ -298,8 +298,11 @@ def bound_check(T, T0, cfg: ICPConfig):
 def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
              cfg: ICPConfig, index: Optional[GridIndex] = None) -> ICPResult:
     """The full ICP loop on pre-filtered clouds; ``index`` is the
-    reference's grid index for ``matcher="grid"``."""
-    T_start = T_init.to(torch.float32)
+    reference's grid index for ``matcher="grid"``. It computes in fp32
+    (K1's on the card), or in fp64 where the reading is fp64 (the plain
+    matcher on the CPU)."""
+    T_start = T_init.to(torch.float64 if reading.points.dtype
+                        == torch.float64 else torch.float32)
     T0 = T_start
     if cfg.coarse_div and cfg.coarse_div > 1:
         T0, _, _ = _icp_loop(decimate(reading, cfg.coarse_div), reference,

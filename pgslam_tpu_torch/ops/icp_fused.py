@@ -544,7 +544,7 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig,
     nrm = reference.descriptors.get("normals")
     if nrm is None:
         nrm = torch.zeros_like(reference.points)
-    T0 = T_init.to(torch.float32).contiguous()
+    T0 = T_init.contiguous()
     args = [(reading.points, "reading", torch.float32, (B, NQ, 3)),
             (reading.mask, "reading_mask", torch.bool, (B, NQ)),
             (reference.points, "reference", torch.float32, (B, NR, 3)),
@@ -552,7 +552,7 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig,
             (reference.mask, "reference_mask", torch.bool, (B, NR)),
             (T0, "T_init", torch.float32, (B, 4, 4))]
     for t, name, dtype, shape in args:
-        _build.require(t, name, dtype, shape, dev)
+        _build.require(t, name, dtype, shape, dev, "K2")
     if layout is None:
         budget, active = device_limits(
             dev.index if dev.index is not None

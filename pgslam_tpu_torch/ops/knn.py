@@ -190,10 +190,10 @@ def knn(query, query_mask, reference, reference_mask, k: int = 1,
     from .. import _build
     dev = query.device
     nq, nr = query.shape[0], reference.shape[0]
-    _build.require(query, "query", torch.float32, (nq, 3), dev)
-    _build.require(query_mask, "query_mask", torch.bool, (nq,), dev)
-    _build.require(reference, "reference", torch.float32, (nr, 3), dev)
-    _build.require(reference_mask, "reference_mask", torch.bool, (nr,), dev)
+    _build.require(query, "query", torch.float32, (nq, 3), dev, "K1")
+    _build.require(query_mask, "query_mask", torch.bool, (nq,), dev, "K1")
+    _build.require(reference, "reference", torch.float32, (nr, 3), dev, "K1")
+    _build.require(reference_mask, "reference_mask", torch.bool, (nr,), dev, "K1")
     if layout is None:
         layout = k1_layout(nq, nr, k, sm_count(dev))
     d = torch.empty((nq, k), dtype=torch.float32, device=dev)

@@ -27,7 +27,7 @@ class ErrorElements:
 def overlap(weights: torch.Tensor, n_valid_reading) -> torch.Tensor:
     """Weighted point-used ratio."""
     n = torch.as_tensor(n_valid_reading, device=weights.device)
-    return weights.sum() / torch.clamp(n.to(torch.float32), min=1.0)
+    return weights.sum() / torch.clamp(n.to(weights.dtype), min=1.0)
 
 
 def _degenerate_guard(delta, weights):

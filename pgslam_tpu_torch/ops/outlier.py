@@ -56,11 +56,12 @@ OUTLIERS = (TrimmedDist, MaxDist, MedianDist, SurfaceNormalOutlier,
 OutlierChain = Tuple
 
 
-def kth_keep(ratio: float, n_valid: torch.Tensor) -> torch.Tensor:
-    """``ceil(ratio * n_valid)`` in fp32, as the JAX package computes it."""
-    return torch.ceil(torch.tensor(ratio, dtype=torch.float32,
-                                   device=n_valid.device)
-                      * n_valid.to(torch.float32))
+def kth_keep(ratio: float, n_valid: torch.Tensor,
+             dtype=torch.float32) -> torch.Tensor:
+    """``ceil(ratio * n_valid)`` in ``dtype`` (the distances' dtype; fp32
+    on the main path), as the JAX package computes it."""
+    return torch.ceil(torch.tensor(ratio, dtype=dtype, device=n_valid.device)
+                      * n_valid.to(dtype))
 
 
 def _sorted_valid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -74,7 +75,7 @@ def trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
     """Exact value of the ``ceil(ratio * n_valid)``-th smallest valid
     distance (the first one when no distance is valid)."""
     s = _sorted_valid(d2, valid)
-    kth = kth_keep(ratio, valid.sum()).to(torch.int64) - 1
+    kth = kth_keep(ratio, valid.sum(), d2.dtype).to(torch.int64) - 1
     return s[torch.clamp(kth, 0, s.shape[0] - 1)]
 
 
@@ -82,7 +83,7 @@ def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """The valid distances' median: the sorted entry at
     ``int(0.5 * max(n_valid, 1))``."""
     s = _sorted_valid(d2, valid)
-    n_valid = torch.clamp(valid.sum(), min=1).to(torch.float32)
+    n_valid = torch.clamp(valid.sum(), min=1).to(d2.dtype)
     idx = (0.5 * n_valid).to(torch.int64)
     return s[torch.clamp(idx, 0, s.shape[0] - 1)]
 
@@ -94,8 +95,8 @@ def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
     smallest distance at its (first) minimum."""
     s = _sorted_valid(d2, valid)
     n = s.shape[0]
-    n_valid = torch.clamp(valid.sum(), min=1).to(torch.float32)
-    ks = torch.arange(1, n + 1, dtype=torch.float32, device=d2.device)
+    n_valid = torch.clamp(valid.sum(), min=1).to(d2.dtype)
+    ks = torch.arange(1, n + 1, dtype=d2.dtype, device=d2.device)
     r = ks / n_valid
     e = torch.cumsum(torch.where(torch.isfinite(s), s, 0.0), 0) / ks
     psi = e / torch.clamp(r, min=1e-9) ** cfg.lam
@@ -112,7 +113,7 @@ def compute_weights(chain: OutlierChain, matches: Matches,
     (``[Nq, k, 3]``), for ``SurfaceNormalOutlier``."""
     d2 = matches.dists2
     valid = torch.isfinite(d2) & query_mask[:, None]
-    w = valid.to(torch.float32)
+    w = valid.to(d2.dtype)
     for cfg in chain:
         if isinstance(cfg, TrimmedDist):
             keep = d2 <= trimmed_threshold(d2, valid, cfg.ratio)
@@ -129,8 +130,8 @@ def compute_weights(chain: OutlierChain, matches: Matches,
             cos = torch.abs((reading_normals[:, None, :]
                              * reference_normals).sum(-1))
             keep = cos >= torch.cos(torch.tensor(
-                cfg.max_angle, dtype=torch.float32, device=cos.device))
+                cfg.max_angle, dtype=cos.dtype, device=cos.device))
         else:
             raise TypeError(f"unknown outlier filter {type(cfg)}")
-        w = w * keep.to(torch.float32)
+        w = w * keep.to(w.dtype)
     return w

@@ -56,7 +56,7 @@ META_CODE = 20            # the meta table's slot codes start here
 LOC_SHIFT = 24            # a slot's other end: rank << 24 | local vertex
 
 
-def edge_csr(edge_from, edge_to, V: int, emask=None):
+def edge_csr(edge_from, edge_to, V: int, emask=None, ptr_host=None):
     """Per-vertex incidence lists in a fixed order: for each vertex its
     'from' ends, then its 'to' ends, each in edge order. Entries encode
     ``2 * edge + side``. Returns (ptr [V+1], entries [2E]) as int32.
@@ -64,7 +64,9 @@ def edge_csr(edge_from, edge_to, V: int, emask=None):
     Edges off in ``emask`` contribute exact zeros and are left out of the
     lists (their entries follow ``ptr[V]``): ``Optimizer`` pads graphs
     with such edges, all at vertex 0, where one thread would otherwise
-    walk them in every sum."""
+    walk them in every sum. ``ptr_host`` (:func:`edge_csr_ptr_host` of
+    the same graph) is taken as ``ptr``, copied to the device without a
+    synchronization; counting the ends on the card synchronizes."""
     E = edge_from.shape[0]
     dev = edge_from.device
     ends = torch.cat([torch.clamp(edge_from.long(), 0, V - 1),
@@ -76,10 +78,28 @@ def edge_csr(edge_from, edge_to, V: int, emask=None):
     eidx = torch.arange(E, device=dev).repeat(2)
     order = torch.argsort((ends * 2 + side) * max(E, 1) + eidx)
     entries = (eidx * 2 + side)[order].to(torch.int32)
+    if ptr_host is not None:
+        from .. import _build
+        ptr, = _build.to_device([np.asarray(ptr_host, np.int32)], dev)
+        return ptr, entries
     counts = torch.bincount(ends, minlength=V + 1)[:V]
     ptr = torch.zeros(V + 1, dtype=torch.int32, device=dev)
     ptr[1:] = torch.cumsum(counts, 0).to(torch.int32)
     return ptr, entries
+
+
+def edge_csr_ptr_host(edge_from, edge_to, V: int, emask=None) -> np.ndarray:
+    """:func:`edge_csr`'s ``ptr`` from host arrays (numpy int32 [V+1]):
+    ends clamped to the vertices, edges off in ``emask`` sent to V. The
+    resident optimizer holds the graph on the host and hands it to K3,
+    which then reads no ``ptr`` back from the card."""
+    ends = np.concatenate([np.clip(np.asarray(edge_from, np.int64), 0, V - 1),
+                           np.clip(np.asarray(edge_to, np.int64), 0, V - 1)])
+    if emask is not None:
+        ends = np.where(np.tile(np.asarray(emask, bool), 2), ends, V)
+    ptr = np.zeros(V + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(ends, minlength=V + 1)[:V])
+    return ptr
 
 
 def _ceil4(n):
@@ -163,9 +183,10 @@ def slot_ends(vstart, ptr, entries, edge_from, edge_to, n_slots: int):
     (:func:`edge_csr`), its vertex, code ``2 * edge + side``, side and
     the vertex at the edge's other end. Shared by K3's and K4's tables.
     Returns (vstart, owner, local, vertex, code, side, far) as int64."""
+    from .. import _build
     dev = ptr.device
     V = ptr.shape[0] - 1
-    vstart = torch.as_tensor(vstart, dtype=torch.long, device=dev)
+    vstart, = _build.to_device([np.asarray(vstart, np.int64)], dev)
     ptr = ptr.long()
     verts = torch.arange(V, device=dev)
     owner = torch.searchsorted(vstart, verts, right=True) - 1
@@ -218,18 +239,21 @@ def device_limits(index: int) -> tuple:
 
 
 def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
-            fixed_id, robust_emask, config: PGOConfig, in_smem=None):
+            fixed_id, robust_emask, config: PGOConfig, in_smem=None,
+            ptr_host=None):
     """Launch K3. ``in_smem=False`` forces the global-scratch placement
     at the cluster size the shared-memory layout would take (a test of
-    the two placements)."""
+    the two placements). ``ptr_host`` is :func:`edge_csr_ptr_host` of the
+    same graph: given, the layout is planned from it and not from a copy
+    of the device ``ptr``."""
     from .. import _build
     dev = poses.device
     V, E = poses.shape[0], edge_from.shape[0]
-    poses = poses.to(torch.float32).contiguous()
+    poses = poses.contiguous()
     ef = edge_from.to(torch.int32).contiguous()
     et = edge_to.to(torch.int32).contiguous()
-    eT = edge_T.to(torch.float32).contiguous()
-    ec = edge_cov.to(torch.float32).contiguous()
+    eT = edge_T.contiguous()
+    ec = edge_cov.contiguous()
     rmask = (torch.ones(E, dtype=torch.bool, device=dev)
              if robust_emask is None else robust_emask.contiguous())
     for t, name, dtype, shape in (
@@ -241,15 +265,20 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
             (ec, "edge_cov", torch.float32, (E, 6, 6)),
             (emask, "emask", torch.bool, (E,)),
             (rmask, "robust_emask", torch.bool, (E,))):
-        _build.require(t, name, dtype, shape, dev)
+        _build.require(t, name, dtype, shape, dev, "K3")
     fixed = int(fixed_id)
     if not 0 <= fixed < V:
         raise ValueError(f"fixed_id {fixed} outside 0..{V - 1}")
-    ptr, entries = edge_csr(ef, et, V, emask)
+    if ptr_host is not None and np.shape(ptr_host) != (V + 1,):
+        raise ValueError(f"K3: ptr_host of shape {np.shape(ptr_host)}, "
+                         f"expected ({V + 1},)")
+    ptr, entries = edge_csr(ef, et, V, emask, ptr_host)
     budget, c_smem, c_global = device_limits(dev.index
                                              if dev.index is not None
                                              else torch.cuda.current_device())
-    layout = cluster_layout(ptr.cpu().numpy(), budget, c_smem, c_global)
+    if ptr_host is None:
+        ptr_host = ptr.cpu().numpy()
+    layout = cluster_layout(ptr_host, budget, c_smem, c_global)
     if in_smem is False and layout.in_smem:
         layout = dataclasses.replace(layout, in_smem=False, smem_bytes=0)
     meta = slot_tables(layout, ptr, entries, ef, et, V)
@@ -285,8 +314,11 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
 
 def lm_optimize(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
                 fixed_id, robust_emask=None, *,
-                config: PGOConfig = PGOConfig()):
-    """K3 wrapper: same contract as ``pgo.lm_optimize_plain``."""
+                config: PGOConfig = PGOConfig(), ptr_host=None):
+    """K3 wrapper: same contract as ``pgo.lm_optimize_plain``.
+    ``ptr_host`` (:func:`edge_csr_ptr_host` of the graph, optional) spares
+    the launch its read of the incidence pointer from the card; the
+    plain version has no use for it."""
     dev = poses.device
     if dev.type == "cpu":
         return lm_optimize_plain(poses, vmask, edge_from, edge_to, edge_T,
@@ -295,7 +327,7 @@ def lm_optimize(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
     if dev.type != "cuda":
         raise ValueError(f"lm_optimize: unsupported device {dev}")
     return _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
-                   emask, fixed_id, robust_emask, config)
+                   emask, fixed_id, robust_emask, config, ptr_host=ptr_host)
 
 
 lm_optimize.launches = 0

@@ -209,20 +209,24 @@ class K4Plan:
     words: dict
 
 
-def k4_plan(edge_from, edge_to, V: int, emask=None, **forced) -> K4Plan:
+def k4_plan(edge_from, edge_to, V: int, emask=None, ptr_host=None,
+            **forced) -> K4Plan:
     """K4's plan for the graph on the card, its slots those of the edges
     on in ``emask`` (every edge without one: an edge left out must carry
-    zero blocks); ``forced`` goes to :func:`k4_layout`. Raises
+    zero blocks); ``forced`` goes to :func:`k4_layout`. ``ptr_host``,
+    :func:`.lm.edge_csr_ptr_host` of the same graph, spares the read of
+    the incidence pointer from the card. Raises
     ``RuntimeError`` if the layout's CTAs would not all be resident on
     the card at once (its barriers would never return)."""
     from .. import _build
     dev = edge_from.device
     E = edge_from.shape[0]
-    ptr, entries = edge_csr(edge_from, edge_to, V, emask)
+    ptr, entries = edge_csr(edge_from, edge_to, V, emask, ptr_host)
     budget, sms, max_cluster = device_limits(
         dev.index if dev.index is not None else torch.cuda.current_device())
-    layout = k4_layout(ptr.cpu().numpy(), sms, budget, max_cluster,
-                       **forced)
+    if ptr_host is None:
+        ptr_host = ptr.cpu().numpy()
+    layout = k4_layout(ptr_host, sms, budget, max_cluster, **forced)
     resident = ctypes.c_int(0)
     _build.check(_build.lib().pgs_pcg_resident(
         layout.ctas, layout.cluster, layout.smem_bytes,
@@ -249,14 +253,17 @@ def _launch(plan: K4Plan, blocks, P_inv, damp_diag, b, prior_info,
             (blocks[0], "H_ff", (E, 6, 6)), (blocks[1], "H_tt", (E, 6, 6)),
             (blocks[2], "H_ft", (E, 6, 6)), (P_inv, "P_inv", (V, 6, 6)),
             (damp_diag, "damp_diag", (V, 6)), (b, "b", (V, 6))):
-        _build.require(t, name, torch.float32, shape, dev)
+        _build.require(t, name, torch.float32, shape, dev, "K4")
         if len(shape) == 3 and t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
     fixed = int(fixed_id)
     if not 0 <= fixed < V:
         raise ValueError(f"fixed_id {fixed} outside 0..{V - 1}")
-    prior = torch.as_tensor(prior_info, dtype=torch.float32,
-                            device=dev).reshape(1)
+    if torch.is_tensor(prior_info):
+        prior = prior_info.reshape(1)
+        _build.require(prior, "prior_info", torch.float32, (1,), dev, "K4")
+    else:
+        prior = torch.tensor([prior_info], dtype=torch.float32, device=dev)
     lay, w = plan.layout, plan.words
     out = torch.empty(6 * V + 4, dtype=torch.float32, device=dev)
     total = pcg_solve.cg_steps.get(dev.index)

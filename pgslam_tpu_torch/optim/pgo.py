@@ -289,8 +289,10 @@ class LMProblem:
         self.emask, self.robust_emask = emask, robust_emask
         self.fixed = int(fixed_id)
         self.eye6 = torch.eye(6, dtype=dtype, device=dev)
-        self.prior_info = torch.tensor(1.0 / config.prior_sigma ** 2,
-                                       dtype=dtype, device=dev)
+        # Scalars are filled on the device: a copy from the host would
+        # synchronize the stream.
+        self.prior_info = torch.full((), 1.0 / config.prior_sigma ** 2,
+                                     dtype=dtype, device=dev)
         self.prior_Tinv = se3.inverse(poses[self.fixed])
         self.Tinv_meas = se3.inverse(edge_T)
         info = spd_inverse6(torch.where(emask[:, None, None], edge_cov,
@@ -341,12 +343,13 @@ SOLVES = ("pcg_plain", "pcg", "dense")
 def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                      emask, fixed_id, robust_emask=None, *,
                      config: PGOConfig = PGOConfig(),
-                     solve: str = "pcg_plain"):
+                     solve: str = "pcg_plain", ptr_host=None):
     """The LM loop (port of ``pgo._optimize_xla``) with the linear solve
     ``solve``: ``"pcg_plain"`` (:func:`pcg_solve_plain`), ``"pcg"`` (K4's
     wrapper :func:`.pcg.pcg_solve`; its plan, the edge CSR order, layout,
-    slot tables and scratch, is built once here) or ``"dense"``
-    (:func:`dense_solve`). Returns (poses, stats) with stats
+    slot tables and scratch, is built once here, from ``ptr_host``, the
+    host's :func:`.lm.edge_csr_ptr_host` of the graph, where given) or
+    ``"dense"`` (:func:`dense_solve`). Returns (poses, stats) with stats
     ``initial_cost``, ``final_cost``, ``iterations``, ``lambda`` and
     ``cg_steps`` (PCG steps over the whole optimize, 0 for the dense
     solve).
@@ -360,7 +363,7 @@ def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
     ef, et, fixed, prior_info = prob.ef, prob.et, prob.fixed, prob.prior_info
     if solve == "pcg":
         from .pcg import k4_plan, pcg_solve
-        plan = (k4_plan(ef, et, poses.shape[0], emask)
+        plan = (k4_plan(ef, et, poses.shape[0], emask, ptr_host=ptr_host)
                 if poses.device.type == "cuda" else None)
 
     def linear_solve(blocks, D, lam, b):
@@ -378,8 +381,8 @@ def lm_optimize_loop(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                                fixed, ef, et, **kw)
 
     cur = poses
-    lam = torch.tensor(config.lambda_init, dtype=poses.dtype,
-                       device=poses.device)
+    lam = torch.full((), config.lambda_init, dtype=poses.dtype,
+                     device=poses.device)
     cost = init_cost = prob.cost(poses)
     it, done, cg_steps = 0, False, 0
     while it < config.max_iterations and not done:
@@ -427,18 +430,22 @@ def finish_poses(final, poses, vmask):
 
 def optimize_pose_graph(poses, vmask, edge_from, edge_to, edge_T, edge_cov,
                         emask, fixed_id, robust_emask=None,
-                        config: PGOConfig = PGOConfig()):
+                        config: PGOConfig = PGOConfig(), ptr_host=None):
     """Run LM on the pose graph; returns (optimized poses, stats dict).
     The path follows :func:`route` on the device of ``poses``. Padded
-    entries (``vmask`` / ``emask`` False) contribute nothing."""
+    entries (``vmask`` / ``emask`` False) contribute nothing.
+    ``ptr_host`` (:func:`.lm.edge_csr_ptr_host` of the graph, optional)
+    lets K3 and K4 plan their layouts without reading the incidence
+    pointer back from the card."""
     check_supported(config)
     args = (poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
             fixed_id, robust_emask)
     path = route(config, poses.shape[0], edge_from.shape[0], poses.device)
     if path == "lm":
         from .lm import lm_optimize
-        return lm_optimize(*args, config=config)
-    return lm_optimize_loop(*args, config=config, solve=path)
+        return lm_optimize(*args, config=config, ptr_host=ptr_host)
+    return lm_optimize_loop(*args, config=config, solve=path,
+                            ptr_host=ptr_host)
 
 
 def pose_marginals(poses, vmask, edge_from, edge_to, edge_T, edge_cov,

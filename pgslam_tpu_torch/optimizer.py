@@ -1,13 +1,20 @@
 """Optimizer component: assembles the pose graph plus the pending loop
 constraints into one LM problem, runs it, writes the poses back and only
-then inserts the loop edges. Counterpart of the classic path of
-:mod:`pgslam_tpu.optimizer` (the device-resident mirror is not ported).
+then inserts the loop edges. Counterpart of :mod:`pgslam_tpu.optimizer`.
+
+By default the problem lives on the device between optimizes
+(:mod:`.optim.resident`, ``OptimizerConfig.resident``): each optimize
+uploads what changed and fetches the poses and stats in one copy. The
+classic path (``resident="off"``, or ``PGSLAM_PGO_RESIDENT=0``) uploads
+the whole padded problem every time; it also takes a batch whose
+resident optimize raised.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -62,9 +69,14 @@ def pad_graph(poses, edge_from, edge_to, edge_T, edge_cov, bucket: int):
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
-    """Same fields and defaults as ``pgslam_tpu.optimizer.OptimizerConfig``;
-    ``resident`` and ``writeback_pack`` belong to the device-resident
-    mirror, which is not ported, and are ignored."""
+    """Same fields and defaults as ``pgslam_tpu.optimizer.OptimizerConfig``.
+    ``resident``: "auto" keeps the padded graph on the device across
+    optimizes (:class:`.optim.resident.ResidentPGO`, the same solve, the
+    same bits as a rebuild), "off" uploads it whole every time.
+    ``writeback_pack``: how the poses come back from the mirror,
+    "exact12" (bit-exact), "quat7" (~1e-7 of rotation round-off, 7/12
+    of the bytes) or "auto" (quat7 from ``resident.QUAT_MIN_V`` padded
+    vertices)."""
     pgo: PGOConfig = PGOConfig()
     shape_bucket: int = 64
     resident: str = "auto"
@@ -88,6 +100,7 @@ class Optimizer:
         # The fleet queues constraints and optimizes once per step over
         # all of them (process_pending).
         self.queue_mode = False
+        self._mirror = None          # the ResidentPGO, made at first use
 
     def add_new_data(self, from_v: int, to_v: int, T_from_to,
                      cov_from_to) -> None:
@@ -106,19 +119,60 @@ class Optimizer:
         if self.data_buffer:
             self.process_data()
 
+    def _resident_enabled(self) -> bool:
+        if os.environ.get("PGSLAM_PGO_RESIDENT", "") == "0":
+            return False
+        return self.config.resident != "off"
+
     def process_data(self) -> None:
         log.info("[Optimizer] Building factor graph with %d new loop "
                  "closing factors", len(self.data_buffer))
-        args, rmask = self.prepare_for_optimization()
-        new_poses, stats = optimize_pose_graph(
-            *args, robust_emask=rmask, config=self.config.pgo)
-        self.last_stats = {k: float(v) for k, v in stats.items()}
+        resident_failed = False
+        if self._resident_enabled():
+            try:
+                # The prepare is inside the fail-soft too: a host-side
+                # bookkeeping error takes the classic path as a device
+                # failure does. It consumed pose_dirty, but the classic
+                # path rebuilds from the whole graph, and invalidate()
+                # makes the mirror's next call a rebuild.
+                prep = self.prepare_for_optimization_resident()
+                new_poses, self.last_stats = self._mirror.execute(prep)
+            except Exception as e:
+                # A slower optimize beats a SLAM loop that stops.
+                log.warning("[Optimizer] resident optimize failed "
+                            "(%s: %s) — falling back to the classic "
+                            "path for this batch", type(e).__name__, e,
+                            exc_info=True)
+                if self._mirror is not None:
+                    self._mirror.invalidate()
+                resident_failed = True
+        if not self._resident_enabled() or resident_failed:
+            args, rmask = self.prepare_for_optimization()
+            new_poses, stats = optimize_pose_graph(
+                *args, robust_emask=rmask, config=self.config.pgo)
+            self.last_stats = {k: float(v) for k, v in stats.items()}
+            new_poses = new_poses.cpu().numpy()
         log.info("[Optimizer] cost %.3e -> %.3e in %d iters",
                  self.last_stats["initial_cost"],
                  self.last_stats["final_cost"],
                  int(self.last_stats["iterations"]))
         self.runs += 1
-        self.update_after_optimization(new_poses.cpu().numpy())
+        self.update_after_optimization(new_poses)
+
+    def prepare_for_optimization_resident(self):
+        """The mirror's host snapshot (graph reads only; the MT optimizer
+        takes the graph lock around it, as around
+        :meth:`prepare_for_optimization`)."""
+        if self._mirror is None:
+            from .optim.resident import ResidentPGO
+            self._mirror = ResidentPGO(self.config.pgo,
+                                       shape_bucket=self.config.shape_bucket,
+                                       pack=self.config.writeback_pack,
+                                       device=self.device)
+        g = self.mm.get_graph()
+        self._nv_snapshot = g.n_vertices
+        return self._mirror.prepare(g, self.mm.get_fixed_vertex(),
+                                    self.data_buffer)
 
     def prepare_for_optimization(self):
         """Padded problem: every graph edge plus the pending loop edges,
@@ -153,8 +207,17 @@ class Optimizer:
         n = min(len(new_poses), g.n_vertices)
         if self._nv_snapshot is not None:
             n = min(n, self._nv_snapshot)
-        self.mm.update_keyframe_transforms_bulk(new_poses[:n], t_opt)
-        for (f, t, T, c) in self.data_buffer:
-            self.mm.add_loop_closing_constraint(f, t, T, c)
+        # mark_dirty=False: these poses are the device's result (or its
+        # packed round trip); the mirror needs no upload of them.
+        self.mm.update_keyframe_transforms_bulk(new_poses[:n], t_opt,
+                                                mark_dirty=False)
+        try:
+            for (f, t, T, c) in self.data_buffer:
+                self.mm.add_loop_closing_constraint(f, t, T, c)
+        finally:
+            # Also after an insert raised: the graph then holds fewer
+            # edges than the mirror's slots, and the mirror is dropped.
+            if self._mirror is not None:
+                self._mirror.confirm_inserts(g)
         self.data_buffer = []
         self.mm.notify_keyframe_update()

@@ -255,6 +255,12 @@ class OptimizerMT(Optimizer, _Worker):
         with self.mm.get_graph_lock():
             return Optimizer.prepare_for_optimization(self)
 
+    def prepare_for_optimization_resident(self):
+        # The mirror's snapshot reads the graph under the lock; its solve
+        # runs unlocked (OptimizerMT.hpp:71-82).
+        with self.mm.get_graph_lock():
+            return Optimizer.prepare_for_optimization_resident(self)
+
     def update_after_optimization(self, new_poses) -> None:
         with self.mm.get_graph_lock():
             Optimizer.update_after_optimization(self, new_poses)

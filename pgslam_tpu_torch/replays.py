@@ -258,8 +258,9 @@ def run_replay(name: str, device=None, sync=None, config=None,
     reported after a scan trails by the commit lag; the last one is
     replaced by the flushed pose, as ``tests/golden_replay.py::_replay``
     does. ``stats`` also holds each scan's local-map composition
-    (``compositions``) and the overlap of the last committed
-    registration (``overlaps``, None before the first), and counts the
+    (``compositions``), the overlap and ICP iterations of the last
+    committed registration (``overlaps``, ``iterations``, None before the
+    first) and the keyframe count (``keyframes``), and counts the
     swaps among the compositions (a composition replaced by the same
     keyframes in another order) as ``_replay`` does;
     ``stats["seconds"]`` covers the scans, the flush and the final
@@ -268,7 +269,8 @@ def run_replay(name: str, device=None, sync=None, config=None,
     scans, odom, _ = REPLAYS[name][0]()
     slam = PoseGraphSlam(config, device=device)
     T_rs = np.eye(4, dtype=np.float32)
-    per_scan, times, comps, overlaps = [], [], [], []
+    per_scan, times, comps, overlaps, keyframes = [], [], [], [], []
+    iterations = []
     untimed = 0.0
     t_start = time.perf_counter()
     for i, (scan, T_odom) in enumerate(zip(scans, odom)):
@@ -282,6 +284,10 @@ def run_replay(name: str, device=None, sync=None, config=None,
         comps.append(_composition(slam))
         last = slam.localizer.last_result
         overlaps.append(None if last is None else float(last.overlap))
+        iterations.append(None if last is None else int(last.iterations))
+        # The map manager's graph: slam.get_graph() would flush the
+        # deferred commits and change the replay.
+        keyframes.append(slam.map_manager.get_graph().n_vertices)
         untimed += time.perf_counter() - t1
     slam.flush()
     if sync is not None:
@@ -293,7 +299,8 @@ def run_replay(name: str, device=None, sync=None, config=None,
     swaps = sum(a != b and set(a) == set(b) for a, b in zip(comps, comps[1:]))
     return np.stack(per_scan), slam.trajectory(), _stats(
         slam, seconds, scan_seconds=times, n_swaps=swaps,
-        compositions=comps, overlaps=overlaps)
+        compositions=comps, overlaps=overlaps, keyframes=keyframes,
+        iterations=iterations)
 
 
 def run_replay_resumed(name: str, checkpoint_at: int, path: str,

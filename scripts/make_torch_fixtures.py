@@ -18,13 +18,17 @@ JAX is not installed (``chip_smoke.py``):
 * ``tests/fixtures/golden_replay_long_eval.npz``: ATE and RPE of
   ``golden_replay_long.npz``'s per-scan poses to the clover's truth,
   computed by ``pgslam_tpu.eval``, and that run's per-scan local-map
-  compositions and registration overlaps.
+  compositions and registration overlaps;
+* ``tests/fixtures/golden_replay_grid_eval.npz``: the grid replay's
+  per-scan local-map compositions, registration overlaps and ICP
+  iterations, and keyframe counts (its per-scan poses must be
+  ``golden_replay_grid.npz``'s).
 
 Each replay fixture holds the per-scan poses (the last one the flushed
 pose), the keyframe trajectory, and the keyframe, loop-edge, swap and
 optimizer-run counts. Run on the CPU backend, as the test tier runs JAX:
 
-    python scripts/make_torch_fixtures.py [lag2] [stream4] [yaml] [p2plane] [grid] [long_eval]
+    python scripts/make_torch_fixtures.py [lag2] [stream4] [yaml] [p2plane] [grid] [long_eval] [grid_eval]
 
 The existing fixtures are not touched. Commit the result.
 """
@@ -119,39 +123,44 @@ RUNS = {"lag2": (lag2_run, "golden_replay_lag2.npz"),
         "grid": (grid_run, "golden_replay_grid.npz")}
 
 
-def long_decisions():
-    """The JAX package's single-threaded long replay (``_replay``'s loop)
-    with each scan's local-map composition and the overlap of its
-    registration (NaN for the first scan, which has none); its per-scan
-    poses must be golden_replay_long.npz's."""
+def decisions(seq, config, fixture):
+    """The JAX package's single-threaded replay of ``seq`` (``_replay``'s
+    loop) with each scan's local-map composition, the overlap and ICP
+    iterations of its registration (NaN and -1 for the first scan, which
+    has none) and the keyframe count after it; its per-scan poses must
+    be ``fixture``'s."""
     from pgslam_tpu.slam import PoseGraphSlam
-    scans, odom, _ = long_sequence()
-    slam = PoseGraphSlam(golden_config())
+    scans, odom, _ = seq
+    slam = PoseGraphSlam(config)
     T_rs = np.eye(4, dtype=np.float32)
-    per_scan, comps, overlaps = [], [], []
+    per_scan, comps, overlaps, keyframes, iterations = [], [], [], [], []
     for i, (scan, T_odom) in enumerate(zip(scans, odom)):
         slam.add_data(i, "world", T_odom, T_rs, scan)
         per_scan.append(slam.localizer.T_world_robot.copy())
         comps.append(slam.localizer.local_map.get_composition().as_list())
         last = slam.localizer.last_result
         overlaps.append(np.nan if last is None else float(last.overlap))
+        iterations.append(-1 if last is None else int(last.iterations))
+        keyframes.append(slam.get_graph().n_vertices)
     if not np.array_equal(np.stack(per_scan),
-                          np.load(FIXTURE_LONG)["per_scan_poses"]):
-        raise RuntimeError("the long replay no longer gives its fixture")
+                          np.load(fixture)["per_scan_poses"]):
+        raise RuntimeError(f"the replay no longer gives {fixture}")
     width = max(len(c) for c in comps)
     return (np.array([c + [-1] * (width - len(c)) for c in comps], np.int32),
-            np.array(overlaps, np.float32))
+            np.array(overlaps, np.float32), np.array(keyframes, np.int32),
+            np.array(iterations, np.int32))
 
 
 def record_long_eval() -> str:
     """ATE (after the rigid alignment) and RPE (delta 1) of the long
     fixture's per-scan poses to the sequence's truth, and the run's
-    per-scan decisions (:func:`long_decisions`)."""
+    per-scan decisions (:func:`decisions`)."""
     from pgslam_tpu.eval import ate_rmse, rpe
     per_scan = np.load(FIXTURE_LONG)["per_scan_poses"]
     truth = np.stack(long_sequence()[2])
     rpe_t, rpe_r = rpe(per_scan, truth)
-    compositions, overlaps = long_decisions()
+    compositions, overlaps, _, _ = decisions(
+        long_sequence(), golden_config(), FIXTURE_LONG)
     path = os.path.join(FIXTURES, "golden_replay_long_eval.npz")
     np.savez_compressed(path, ate_rmse=ate_rmse(per_scan, truth),
                         rpe_trans=rpe_t, rpe_rot=rpe_r,
@@ -161,9 +170,23 @@ def record_long_eval() -> str:
     return path
 
 
+def record_grid_eval() -> str:
+    """The grid replay's per-scan decisions (:func:`decisions`)."""
+    compositions, overlaps, keyframes, iterations = decisions(
+        golden_sequence(), grid_config(),
+        os.path.join(FIXTURES, RUNS["grid"][1]))
+    path = os.path.join(FIXTURES, "golden_replay_grid_eval.npz")
+    np.savez_compressed(path, compositions=compositions, overlaps=overlaps,
+                        keyframes=keyframes, iterations=iterations)
+    print(f"wrote {path}: {len(overlaps)} scans, {keyframes[-1]} keyframes")
+    return path
+
+
 def record(name: str) -> str:
     if name == "long_eval":
         return record_long_eval()
+    if name == "grid_eval":
+        return record_grid_eval()
     run, file = RUNS[name]
     per_scan, trajectory, stats = run()
     path = os.path.join(FIXTURES, file)
@@ -179,7 +202,7 @@ def record(name: str) -> str:
 def main():
     if jax.default_backend() != "cpu":
         raise SystemExit(f"JAX is not on the CPU: {jax.devices()}")
-    for name in sys.argv[1:] or [*RUNS, "long_eval"]:
+    for name in sys.argv[1:] or [*RUNS, "long_eval", "grid_eval"]:
         record(name)
 
 

@@ -828,3 +828,88 @@ def test_verify_route_on_card(cuda, monkeypatch, env, launches):
     torch.cuda.synchronize()
     assert fused_icp_register.launches - before == launches
     assert bool(torch.isfinite(packed[:57]).all())
+
+
+def test_k3_with_host_ptr_is_bit_equal(cuda):
+    """K3 given the host's incidence pointer (as the resident optimizer
+    gives it) launches the same layout and gives the same bits as K3
+    reading it back from the card."""
+    from pgslam_tpu_torch.optim.lm import edge_csr_ptr_host
+    args, _ = bucketed_problem(1000, 1000, device=cuda)
+    cfg = PGOConfig(max_iterations=4, cg_iterations=16, cg_tol=1e-3)
+    ptr = edge_csr_ptr_host(args[2].cpu().numpy(), args[3].cpu().numpy(),
+                            args[0].shape[0], args[6].cpu().numpy())
+    pa, sa = lm_optimize(*args, config=cfg)
+    lay_a = lm_optimize.layout
+    pb, sb = lm_optimize(*args, config=cfg, ptr_host=ptr)
+    torch.cuda.synchronize()
+    assert lm_optimize.layout == lay_a
+    assert torch.equal(pa, pb)
+    for key in sa:
+        assert torch.equal(sa[key], sb[key]), key
+    with pytest.raises(ValueError):
+        lm_optimize(*args, config=cfg, ptr_host=ptr[:-1])
+
+
+def test_kernel_wrappers_raise_on_fp64(cuda):
+    """No wrapper casts: an fp64 tensor that reaches a kernel on the card
+    raises a TypeError naming the kernel (fp64 runs on the CPU only)."""
+    from pgslam_tpu_torch._build import KernelDtypeError
+    q = torch.zeros((16, 3), dtype=torch.float64, device=cuda)
+    m = torch.ones(16, dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError, match="K1"):
+        knn(q, m, q, m)
+    cfg = ICPConfig(error="point_to_point", outlier=(O.TrimmedDist(0.9),))
+    pts = torch.as_tensor(np.random.default_rng(0).normal(size=(1, 64, 3)),
+                          dtype=torch.float32, device=cuda)
+    cloud = make_cloud(pts[0].cpu().numpy(), device=cuda).map(
+        lambda a: a[None])
+    T64 = torch.eye(4, dtype=torch.float64, device=cuda)[None]
+    with pytest.raises(TypeError, match="K2"):
+        fused_icp_register(cloud, cloud, T64, cfg)
+    args = _ring(cuda)
+    for i in (0, 4, 5):          # poses, edge_T, edge_cov
+        bad = list(args)
+        bad[i] = bad[i].double()
+        with pytest.raises(KernelDtypeError, match="K3"):
+            lm_optimize(*bad, config=PGOConfig(max_iterations=1))
+    blocks, P_inv, damp, b, prior, fixed, ef, et = _k4_system(cuda, 40, 33)
+    with pytest.raises(TypeError, match="K4"):
+        pcg_solve(blocks, P_inv, damp, b.double(), prior, fixed, ef, et,
+                  **K4_CG)
+
+
+def test_resident_optimizer_equals_classic(cuda):
+    """The default optimize path (the resident mirror) against the
+    classic upload on one growing graph: the same K3 launches and the
+    same poses after every optimize, bit for bit."""
+    from pgslam_tpu_torch.graph.pose_graph import MapManager
+    from pgslam_tpu_torch.optimizer import Optimizer, OptimizerConfig
+    args, truth = pose_graph_problem(300, 1, device="cpu")
+    init = args[0].numpy()
+    cloud = make_cloud(np.zeros((1, 3), np.float32), device=cuda)
+    cov = np.eye(6, dtype=np.float32) * 0.01
+    rel = lambda a, b: (np.linalg.inv(truth[a]) @ truth[b]).astype(
+        np.float32)
+
+    def run(mode):
+        mm = MapManager()
+        opt = Optimizer(mm, OptimizerConfig(resident=mode), device=cuda)
+        mm.add_first_keyframe(cloud, init[0])
+        out, launches = [], lm_optimize.launches
+        for n, (a, b) in ((100, (3, 90)), (200, (50, 180)),
+                          (300, (10, 290))):
+            while mm.get_graph().n_vertices < n:
+                v = mm.get_graph().n_vertices
+                mm.add_new_keyframe(v - 1, init[v], rel(v - 1, v), cov, cloud)
+            opt.add_new_data(a, b, rel(a, b), cov)
+            g = mm.get_graph()
+            out.append(g.optimized_poses[:g.n_vertices].copy())
+        return out, lm_optimize.launches - launches, opt
+
+    res, k3_res, opt = run("auto")
+    cls, k3_cls, _ = run("off")
+    assert opt._mirror is not None and opt._mirror._st is not None
+    assert k3_res == k3_cls == 3
+    for a, b in zip(res, cls):
+        np.testing.assert_array_equal(a, b)

@@ -114,12 +114,18 @@ def test_grid_icp_registration_matches_jax():
         1.0, abs(float(jr.residual)))
 
 
-def test_grid_replay_matches_jax_fixture():
+@pytest.fixture(scope="module")
+def grid_replay():
+    """The golden loop on the grid matcher, on the CPU."""
+    return replays.run_replay("grid", device="cpu")
+
+
+def test_grid_replay_matches_jax_fixture(grid_replay):
     """The golden loop with both ICP pipelines on the grid matcher against
     the JAX package's run: equal keyframe, loop-edge, swap and optimizer
     counts, every scan within 0.10 m."""
     gold = replays.fixture("grid")
-    per_scan, trajectory, stats = replays.run_replay("grid", device="cpu")
+    per_scan, trajectory, stats = grid_replay
     assert np.isfinite(per_scan).all()
     assert replays.max_pose_gap(per_scan, gold["per_scan_poses"]) \
         < POSE_TOL_M
@@ -128,6 +134,25 @@ def test_grid_replay_matches_jax_fixture():
     assert stats["n_loops"] == int(gold["n_loop_edges"]) >= 1
     assert stats["n_swaps"] == int(gold["n_swaps"])
     assert stats["opt_runs"] == int(gold["opt_runs"])
+
+
+def test_grid_replay_makes_the_jax_decisions(grid_replay):
+    """Scan by scan, the CPU run's local-map composition, keyframe count,
+    and registration overlap and ICP iterations are the JAX run's
+    (golden_replay_grid_eval.npz, scripts/make_torch_fixtures.py
+    grid_eval), as chip_smoke.py's replay_grid reads them on the card."""
+    import os
+    ev = np.load(os.path.join(replays.FIXTURES,
+                              "golden_replay_grid_eval.npz"))
+    _, _, stats = grid_replay
+    assert [tuple(c) for c in stats["compositions"]] == \
+        [tuple(c[c >= 0]) for c in ev["compositions"]]
+    np.testing.assert_array_equal(stats["keyframes"], ev["keyframes"])
+    ov = np.array([np.nan if o is None else o for o in stats["overlaps"]],
+                  np.float32)
+    np.testing.assert_array_equal(ov, ev["overlaps"])
+    its = [-1 if i is None else i for i in stats["iterations"]]
+    np.testing.assert_array_equal(its, ev["iterations"])
 
 
 def test_grid_config_is_the_jax_one():
