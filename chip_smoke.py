@@ -109,12 +109,32 @@ failure, and prints the final JSON line only when every phase passed):
    rebuilds and deltas, bytes up and down and ms per optimize both
    ways. A handler on the optimizer's logger fails the run if any
    resident optimize of any phase fell back to the classic path. Phase
-   k4 also times pgo_16k padded as the Optimizer pads it.
+   k4 also times pgo_16k padded as the Optimizer pads it;
+11. the mesh (``parallel/multichip.py``, ``parallel/sharded_icp.py``,
+   ``MultiAgentSlam(mesh=)``), every mesh position on this card unless
+   the machine has more, each line with the mesh's device grid:
+   ``mesh_match`` (K1 on tp = 2, 4, 8 reference shards, merged, bit-equal
+   to K1 over the whole reference at the loop's 512 x 1536 and the
+   verification's 2048 x 8192, k = 1 and 8, with masks and forced ties;
+   run before the counters are zeroed), ``mesh_register``
+   (``make_sharded_register`` at dp = 4 x tp = 2 against the same call on
+   the CPU, and at one agent a group bit-equal to ``icp_core`` on the
+   card), ``mesh_step`` (``sharded_icp_step`` under both merges, the same
+   bits, and ``dryrun_multichip(8)``), ``mesh_fleet`` (config 5's 16
+   agents for 40 steps on dp = 8 x tp = 2, ms per step beside phase
+   fleet's, then tests/test_multi_agent.py:80-112's case against the
+   single-device fleet, and the tp = 1 route, one K2 launch per dp
+   chunk, bit-equal to the unchunked K2 batch), ``mesh_loop`` (the fleet
+   of one on the golden loop at dp = 1 x tp = 8 against
+   ``golden_replay.npz``) and ``mesh_devices`` (two cards, where the
+   machine has them). The single-device references beside the mesh runs
+   launch uncounted, so the path's counts are the mesh runs' own. Phase
+   k1 also checks the shard shapes 512 x 768, 512 x 192 and 64 x 128.
 
-The launch counters are zeroed before each of the paths 3-10 and read
+The launch counters are zeroed before each of the paths 3-11 and read
 after it; each path must have launched its kernels (K1-K3, K4, K2 at
 B = 128, K1-K3 with K2 at B = 16, K1-K3 with K2 at B = 4, K1-K3, K1-K3
-with K2 at B = 1 only, K3 and K4), and the launches line gives each
+with K2 at B = 1 only, K3 and K4, K1-K3), and the launches line gives each
 path's most-launched K1 shapes, every one of which phase k1 must have
 checked and timed, and its most-launched K4 shapes, every one of which
 must be one of phase k4's cases, with its mean CG steps a K4 launch. The
@@ -125,6 +145,12 @@ second-to-last line is the per-kernel JSON summary; the last is
 
 builds the kernels and runs only path 10, the resident mirror's three
 phases (about a minute).
+
+    python3 chip_smoke.py --mesh-devices
+
+builds the kernels and runs only phase ``mesh_devices``: on a machine
+with two cards or more, the tp = 2 register across two cards and the
+tp = 1 route with its dp chunks on both, each bit-equal to one card.
 
     python3 chip_smoke.py --crossover
 
@@ -176,6 +202,8 @@ plan; two checkouts are compared by running it for each in turns in one
 call on one card.
 """
 
+import collections
+import contextlib
 import json
 import logging
 import os
@@ -455,7 +483,11 @@ def k1_cases(scans):
     and the YAML replays' shapes on the 2048-point clover (a scan's
     keyframe capacity of 1024 points against the local map of three
     keyframes; that map's normals at k = 10, the point-to-plane YAML's
-    SurfaceNormal, and at k = 16, K1's largest k)."""
+    SurfaceNormal, and at k = 16, K1's largest k); and the mesh path's
+    shard shapes: a 512-point reading against one of the two shards of a
+    1536-point map (the mesh fleet, tp = 2) and one of its eight (the
+    loop at tp = 8), and the dry run's 64 points against one of its two
+    128-point shards, from the loop's scans."""
     from pgslam_tpu_torch.replays import (loop_sequence_golden,
                                           yaml_clover_sequence)
     s0, s1 = scans[0], scans[1]
@@ -475,7 +507,13 @@ def k1_cases(scans):
              k, 50),
             ("1024x3072_k1_yaml", cworld[3], cmap, 1, 50),
             ("3072x3072_k10_normals", cmap, cmap, 10, 20),
-            ("3072x3072_k16", cmap, cmap, 16, 20)]
+            ("3072x3072_k16", cmap, cmap, 16, 20),
+            ("512x768_k1_mesh_fleet", world[3][:512],
+             np.concatenate(world[:3])[:768], 1, 50),
+            ("512x192_k1_mesh_loop", world[3][:512],
+             np.concatenate(world[:3])[:192], 1, 50),
+            ("64x128_k1_mesh_dryrun", world[3][:64],
+             np.concatenate(world[:3])[:128], 1, 50)]
 
 
 def k1_inputs(dev, q, r):
@@ -1068,20 +1106,21 @@ class FleetTimer:
         setattr(obj, attr, timed_fn)
 
 
-def drive_fleet(dev, seq, n_steps, split=None):
+def drive_fleet(dev, seq, n_steps, split=None, mesh=None):
     """BASELINE config 5: 16 agents over one shared pose graph
     (``scripts/bench_configs.py:286-334``), agent b on scan i + b % 3 of
     the 72-scan corridor, through ``MultiAgentSlam.add_data_batch``, with
     a sync after each step. With ``split`` (a FleetTimer) the fleet's
-    stages are timed too. Returns (fleet, ms per step, largest error to
-    truth over the steps, each agent's final error)."""
+    stages are timed too; with ``mesh`` the fleet registers over it.
+    Returns (fleet, ms per step, largest error to truth over the steps,
+    each agent's final error)."""
     import torch
     from pgslam_tpu_torch import fleet_problems as FP
     from pgslam_tpu_torch.parallel import multi_agent
     scans, odom, truth = seq
     B = 16
     fleet = multi_agent.MultiAgentSlam(FP.fleet_config(), n_agents=B,
-                                       device=dev)
+                                       device=dev, mesh=mesh)
     fleet.prewarm()
     if split is not None:
         split.wrap(multi_agent, "prepare_input_batched", "input_prep")
@@ -1113,7 +1152,8 @@ def drive_fleet(dev, seq, n_steps, split=None):
 
 def phase_fleet(dev, seq, n_steps=FLEET_STEPS):
     """The fleet's main-path run, uninstrumented: ms per step, closures
-    and each agent's error to truth."""
+    and each agent's error to truth. Returns (ms per step, the agents'
+    final poses, vertices)."""
     fleet, step_ms, worst_any, errs = drive_fleet(dev, seq, n_steps)
     closer = fleet.loop_closer
     total_ms = float(np.sum(step_ms))
@@ -1131,7 +1171,7 @@ def phase_fleet(dev, seq, n_steps=FLEET_STEPS):
         raise AssertionError(f"fleet: final error {max(errs)} m (gate "
                              f"{FLEET_ERR_GATE_M}), {closer.accepted} "
                              f"closures accepted")
-    return total_ms / n_steps
+    return total_ms / n_steps, fleet.poses(), fleet.get_graph().n_vertices
 
 
 def phase_fleet_split(dev, seq, n_steps=FLEET_STEPS):
@@ -1172,18 +1212,18 @@ def phase_fleet_split(dev, seq, n_steps=FLEET_STEPS):
     return b16[0], b16[1], len(bounds)
 
 
-def fleet_of_one(dev, fused, odom_noise=0.0, seed=0):
+def fleet_of_one(dev, fused, odom_noise=0.0, seed=0, mesh=None):
     """The fleet at B = 1 with synchronous closures on the golden loop,
-    registering by ``fused`` (MultiAgentSlam's route), with the odometry
-    moved by ``odom_noise`` m (normal, from ``seed``). Returns (per-scan
-    poses, loop edges, keyframes, wall s)."""
+    registering by ``fused`` (MultiAgentSlam's route), or over ``mesh``,
+    with the odometry moved by ``odom_noise`` m (normal, from ``seed``).
+    Returns (per-scan poses, loop edges, keyframes, wall s)."""
     from pgslam_tpu_torch import replays
     from pgslam_tpu_torch.graph.pose_graph import LOOP_CONSTRAINT
     from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
     scans, odom, _ = replays.loop_sequence_golden()
     rng = np.random.default_rng(seed)
     fleet = MultiAgentSlam(replays.loop_config(), n_agents=1, device=dev,
-                           fused=fused)
+                           fused=fused, mesh=mesh)
     fleet.loop_closer.queue_mode = False
     fleet.localizers[0].defer_graph_resync = False
     T_rs = np.eye(4, dtype=np.float32)
@@ -3149,6 +3189,422 @@ def phase_resident(dev):
             "16k": phase_resident_16k(dev)}
 
 
+# The mesh path (parallel/multichip.py, parallel/sharded_icp.py,
+# MultiAgentSlam(mesh=)): every mesh position on this card unless the
+# machine has more. mesh_match's reference cut into tp shards.
+MESH_TP = (2, 4, 8)
+# mesh_register: the card's sharded registration against the same call
+# on the CPU (plain K1): T within MESH_T_TOL (norm of the twist between
+# them), iterations and flags equal; the card's minimizer may round
+# differently from the CPU's.
+MESH_T_TOL = 1e-5
+# The JAX package's dry run on 8 virtual devices, MULTICHIP_r05.json:
+# final-pose error at most 0.12 cm.
+MESH_DRYRUN_JAX_CM = 0.12
+# tests/test_multi_agent.py:80-112: the fleet on a (dp = 4, tp = 2) mesh
+# within this of the single-device fleet's final poses (and
+# FLEET_ERR_GATE_M of the truth), with equal vertex counts.
+MESH_FLEET_GAP_M = 0.05
+MESH_FLEET_TEST_STEPS = 8
+# The tp = 1 route (one K2 launch per dp chunk) on the same corridor.
+MESH_TP1_STEPS = 4
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made inside are left out of every wrapper's counts
+    and tallies: a reference run beside a path (a single-device fleet,
+    icp_core) is not that path's run."""
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
+    from pgslam_tpu_torch.ops.knn import knn
+    from pgslam_tpu_torch.optim.lm import lm_optimize
+    from pgslam_tpu_torch.optim.pcg import pcg_solve
+    launches = [(w, w.launches)
+                for w in (knn, fused_icp_register, lm_optimize, pcg_solve)]
+    tallies = [(c, collections.Counter(c)) for c in (
+        knn.shapes, fused_icp_register.batch_sizes, pcg_solve.shapes)]
+    steps = {d: t.clone() for d, t in pcg_solve.cg_steps.items()}
+    try:
+        yield
+    finally:
+        for w, n in launches:
+            w.launches = n
+        for c, saved in tallies:
+            c.clear()
+            c.update(saved)
+        for d, t in pcg_solve.cg_steps.items():
+            t.copy_(steps[d]) if d in steps else t.zero_()
+
+
+def mesh_names(mesh) -> str:
+    """A mesh's device grid as ``dp x tp:dev,dev;dev,dev``."""
+    dp, tp = mesh.devices.shape
+    return f"{dp}x{tp}:" + ";".join(",".join(str(d) for d in row)
+                                    for row in mesh.devices)
+
+
+def mesh_match_inputs(scans):
+    """phase mesh_match's inputs: the loop's 512 x 1536 and the
+    verification's 2048 x 8192 (phase k1's points), every 97th query
+    masked, a sixteenth of the references masked from a third on, and
+    forced ties: the first eighth of the references repeated as the last
+    eighth (equal distances far apart in id, in other shards) and every
+    8th query placed on one of those references."""
+    from pgslam_tpu_torch.replays import loop_sequence_golden
+    loop, _, truth = loop_sequence_golden()
+    world = [(c @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+             for c, T in zip(loop[:4], truth[:4])]
+    out = []
+    for name, q, r in (("512x1536", world[3][:512],
+                        np.concatenate(world[:3])[:1536]),
+                       ("2048x8192", scans[1][:2048], scans[0][:8192])):
+        q, r = q.copy(), r.copy()
+        n, m = len(q), len(r)
+        r[m - m // 8:] = r[:m // 8]
+        q[::8] = r[(np.arange(0, n, 8) * 7) % (m // 8)]
+        qm = np.ones(n, bool)
+        qm[::97] = False
+        rm = np.ones(m, bool)
+        rm[m // 3:m // 3 + m // 16] = False
+        out.append((name, q, qm, r, rm))
+    return out
+
+
+def phase_mesh_match(dev, scans):
+    """The sharded registration's match (K1 on each of tp reference
+    shards, candidates merged in shard order) against K1 over the whole
+    reference: ids, d2 and the candidate points bit for bit, at tp = 2,
+    4, 8 and k = 1, 8; K1 over the whole against the plain version on
+    the card as phase k1 holds it. Times of the merged match and the
+    whole K1 call. Returns the largest d2 gap to the plain version."""
+    import torch
+    from pgslam_tpu_torch.ops.knn import knn, knn_plain
+    from pgslam_tpu_torch.parallel.multichip import shard_match
+    worst = 0.0
+    for name, q, qm, r, rm in mesh_match_inputs(scans):
+        qt, qmt, rt, rmt = (torch.as_tensor(a, device=dev)
+                            for a in (q, qm, r, rm))
+        for k in (1, 8):
+            whole = knn(qt, qmt, rt, rmt, k=k)
+            err = k1_check(f"mesh_match {name} k={k}", whole,
+                           knn_plain(qt, qmt, rt, rmt, k=k))
+            worst = max(worst, err)
+            whole_ms, _ = timed(lambda: knn(qt, qmt, rt, rmt, k=k), 10)
+            for tp in MESH_TP:
+                m = len(r) // tp
+                shards = [(rt[j * m:(j + 1) * m], rmt[j * m:(j + 1) * m],
+                           None) for j in range(tp)]
+                got, pts, _ = shard_match(qt, qmt, shards, k, dev)
+                equal = (torch.equal(got.ids, whole.ids)
+                         and torch.equal(got.dists2, whole.dists2)
+                         and torch.equal(pts, rt[whole.ids.long()]))
+                ms, _ = timed(lambda: shard_match(qt, qmt, shards, k, dev),
+                              10)
+                line("mesh_match", shape=name, k=k, tp=tp,
+                     shard=f"{len(q)}x{m}", mesh=f"{tp}x{dev}",
+                     bits_equal_whole_k1=equal, ids_equal_plain=True,
+                     d2_err_plain=err, merged_ms=round(ms, 4),
+                     whole_k1_ms=round(whole_ms, 4))
+                if not equal:
+                    raise AssertionError(f"mesh_match {name} k={k} tp={tp}: "
+                                         "the merged match is not K1's over "
+                                         "the whole reference")
+    return worst
+
+
+def mesh_register_inputs(device, B=4, N=128, Mref=512, seed=42):
+    """tests/test_parallel.py:120-166's scene: wavy surfaces with 8-NN
+    normals (computed on the CPU, so both devices get the same arrays),
+    noisy reading subsets moved by small twists. Returns (reading cloud,
+    reference cloud, T0) on ``device``."""
+    import torch
+    from pgslam_tpu_torch import se3
+    from pgslam_tpu_torch.cloud import make_cloud, stack_clouds
+    from pgslam_tpu_torch.ops.filters import compute_normals
+    rng = np.random.default_rng(seed)
+    twists = rng.normal(size=(B, 6)).astype(np.float32) * 0.03
+    refs, readings = [], []
+    for b in range(B):
+        pts = rng.uniform(-3, 3, size=(Mref, 3)).astype(np.float32)
+        pts[:, 2] = 0.3 * np.sin(pts[:, 0]) + 0.2 * np.cos(1.3 * pts[:, 1])
+        nrm = compute_normals(make_cloud(pts, device="cpu"), knn_k=8
+                              ).descriptors["normals"].numpy()
+        refs.append(make_cloud(pts, descriptors={"normals": nrm},
+                               device=device))
+        T = se3.exp(torch.as_tensor(twists[b]))
+        noisy = pts[:N] + rng.normal(0, 0.02, (N, 3)).astype(np.float32)
+        readings.append(make_cloud(
+            se3.apply(se3.inverse(T), torch.as_tensor(noisy)).numpy(),
+            device=device))
+    T0 = torch.eye(4, device=device).repeat(B, 1, 1)
+    return stack_clouds(readings), stack_clouds(refs), T0
+
+
+def mesh_register_config():
+    from pgslam_tpu_torch.ops import outlier as O
+    from pgslam_tpu_torch.ops.icp import ICPConfig
+    return ICPConfig(error="point_to_plane", max_iterations=20,
+                     outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+
+
+def phase_mesh_register(dev):
+    """``make_sharded_register`` at tests/test_parallel.py:120-166's
+    shapes (B = 4, 128 vs 512, point-to-plane) on a dp = 4 x tp = 2 mesh
+    of card positions, against the same call on CPU positions (plain K1):
+    T within MESH_T_TOL, iterations and flags equal. One agent a dp
+    group, so each agent also equals the port's icp_core on the card bit
+    for bit."""
+    import torch
+    from pgslam_tpu_torch import se3
+    from pgslam_tpu_torch.ops.icp import icp_core
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    from pgslam_tpu_torch.parallel.sharded_icp import make_sharded_register
+    cfg = mesh_register_config()
+    mesh = make_mesh(8, tp=2, devices=[dev] * 8)
+    rd, rf, T0 = mesh_register_inputs(dev)
+    reg = make_sharded_register(mesh, cfg)
+    ms, card = timed(lambda: reg(rd, rf, T0), 3)
+    cpu = make_sharded_register(make_mesh(8, tp=2, devices=["cpu"] * 8),
+                                cfg)(*mesh_register_inputs("cpu"))
+    gap = max(float(se3.log(se3.inverse(card.T[b].cpu()) @ cpu.T[b]).norm())
+              for b in range(card.T.shape[0]))
+    flags = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f))
+                for f in ("iterations", "converged", "max_iter_reached",
+                          "diverged"))
+    core_equal = True
+    for b in range(card.T.shape[0]):
+        with uncounted():
+            one = icp_core(rd.map(lambda a: a[b]), rf.map(lambda a: a[b]),
+                           T0[b], cfg)
+        core_equal &= all(torch.equal(getattr(card, f)[b], v)
+                          for f, v in vars(one).items())
+    line("mesh_register", mesh=mesh_names(mesh), agents=4,
+         shape="128 vs 512, point_to_plane",
+         iterations=",".join(map(str, card.iterations.tolist())),
+         T_gap_to_cpu=gap, flags_equal_cpu=flags,
+         b1_bits_equal_icp_core=core_equal, ms=round(ms, 3))
+    if not (gap < MESH_T_TOL and flags and core_equal):
+        raise AssertionError(f"mesh_register: T {gap} from the CPU run "
+                             f"(limit {MESH_T_TOL}), flags equal {flags}, "
+                             f"icp_core bits {core_equal}")
+
+
+def phase_mesh_step(dev):
+    """``sharded_icp_step`` at tests/test_parallel.py:67-117's inputs
+    under both merges, bit-equal to each other; then
+    ``dryrun_multichip(8)`` on 8 card positions (dp = 4 x tp = 2, 8
+    agents, 10 scans), its final errors below its 0.05 m, printed beside
+    the JAX package's recorded run."""
+    import torch
+    from pgslam_tpu_torch.ops import outlier as O
+    from pgslam_tpu_torch.ops.icp import ICPConfig
+    from pgslam_tpu_torch.parallel.multichip import (DRYRUN_TOL_M,
+                                                     dryrun_multichip,
+                                                     make_mesh,
+                                                     sharded_icp_step)
+    rng = np.random.default_rng(42)
+    ref = rng.uniform(-3, 3, size=(8, 256, 3)).astype(np.float32)
+    args = tuple(torch.as_tensor(a, device=dev) for a in (
+        ref[:, :64] + 0.05, np.ones((8, 64), bool), ref,
+        np.ones((8, 256), bool), np.tile(np.eye(4, dtype=np.float32),
+                                         (8, 1, 1))))
+    mesh = make_mesh(8, tp=2, devices=[dev] * 8)
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+    outs = {}
+    for merge in ("all_gather", "ring"):
+        step = sharded_icp_step(mesh, cfg, merge)
+        ms, outs[merge] = timed(lambda: step(*args), 3)
+        outs[merge + "_ms"] = ms
+    equal = all(torch.equal(a, b) for a, b in zip(outs["all_gather"],
+                                                  outs["ring"]))
+    t0 = time.perf_counter()
+    errs = dryrun_multichip(8, devices=[dev] * 8)
+    torch.cuda.synchronize()
+    line("mesh_step", mesh=mesh_names(mesh), merges_bits_equal=equal,
+         all_gather_ms=round(outs["all_gather_ms"], 3),
+         ring_ms=round(outs["ring_ms"], 3),
+         overlap_min=round(float(outs["all_gather"][1].min()), 5),
+         dryrun_agents=len(errs),
+         dryrun_final_err_max_cm=round(100 * max(errs), 5),
+         jax_dryrun_final_err_max_cm=MESH_DRYRUN_JAX_CM,
+         dryrun_wall_s=round(time.perf_counter() - t0, 3))
+    if not (equal and max(errs) < DRYRUN_TOL_M):
+        raise AssertionError(f"mesh_step: merges equal {equal}, dry run "
+                             f"errors {errs}")
+
+
+def phase_mesh_fleet(dev, seq, fleet_ms, fleet_poses, fleet_nv):
+    """The fleet at full width on a mesh: BASELINE config 5 (16 agents,
+    FLEET_STEPS steps as phase fleet drives them) on ``make_mesh(16,
+    tp=2)`` of card positions (dp = 8 x tp = 2), each agent's final error
+    within FLEET_ERR_GATE_M, ms per step beside the single-device fleet's,
+    the largest gap to its final poses and both vertex counts printed
+    (the single-device fleet registers through K2, the mesh through the
+    sharded loop, and 40 steps of queued closures cross knife edges).
+    Then tests/test_multi_agent.py:80-112's case (B = 4, 8 steps of the
+    512-point corridor, dp = 4 x tp = 2) against the single-device fleet
+    on the card, gated as that test is, and the tp = 1 route (one K2
+    launch per dp chunk) bit-equal to the unchunked K2 batch. The
+    single-device fleets beside them run uncounted. Returns ms per
+    step."""
+    from pgslam_tpu_torch import fleet_problems as FP
+    from pgslam_tpu_torch.datasets import corridor_sequence
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
+    from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    mesh = make_mesh(16, tp=2, devices=[dev] * 16)
+    fleet, step_ms, worst_any, errs = drive_fleet(dev, seq, FLEET_STEPS,
+                                                  mesh=mesh)
+    closer = fleet.loop_closer
+    ms = float(np.sum(step_ms)) / FLEET_STEPS
+    gap = float(np.linalg.norm(fleet.poses()[:, :3, 3]
+                               - fleet_poses[:, :3, 3], axis=1).max())
+    line("mesh_fleet", mesh=mesh_names(mesh), agents=fleet.n_agents,
+         steps=FLEET_STEPS, config="config5_multi_agent",
+         ms_per_step=round(ms, 3), single_device_ms_per_step=round(fleet_ms,
+                                                                   3),
+         median_step_ms=round(float(np.median(step_ms)), 3),
+         keyframes=fleet.get_graph().n_vertices,
+         single_device_keyframes=fleet_nv,
+         max_gap_to_single_device_m=round(gap, 5),
+         closures_accepted=closer.accepted, closures_rejected=closer.rejected,
+         final_err_max_m=round(max(errs), 5),
+         err_max_any_step_m=round(worst_any, 5))
+    if not max(errs) <= FLEET_ERR_GATE_M:
+        raise AssertionError(f"mesh_fleet: final error {max(errs)} m (gate "
+                             f"{FLEET_ERR_GATE_M})")
+
+    scans, odom, truth = corridor_sequence(
+        np.random.default_rng(7), n_scans=12, scan_points=512, step=0.4,
+        noise=0.003, odom_noise=0.005, length=30.0)
+    B = 4
+
+    def drive(fleet, steps, count=True):
+        """Agent b on scan i + b; each step's poses. A reference fleet's
+        launches (count=False) are not the mesh path's."""
+        poses = []
+        for i in range(steps):
+            with contextlib.nullcontext() if count else uncounted():
+                fleet.add_data_batch(i, "world", np.stack(
+                    [odom[i + b] for b in range(B)]),
+                    np.eye(4, dtype=np.float32),
+                    [scans[i + b] for b in range(B)])
+            poses.append(fleet.poses().copy())
+        return np.stack(poses)
+
+    small = make_mesh(8, tp=2, devices=[dev] * 8)
+    on_mesh = MultiAgentSlam(FP.fleet_config(), n_agents=B, mesh=small)
+    plain = MultiAgentSlam(FP.fleet_config(), n_agents=B, device=dev)
+    drive(on_mesh, MESH_FLEET_TEST_STEPS)
+    drive(plain, MESH_FLEET_TEST_STEPS, count=False)
+    last = MESH_FLEET_TEST_STEPS - 1
+    dev_gap = [float(np.linalg.norm(on_mesh.poses()[b][:3, 3]
+                                    - plain.poses()[b][:3, 3]))
+               for b in range(B)]
+    truth_err = [float(np.linalg.norm(on_mesh.poses()[b][:3, 3]
+                                      - truth[last + b][:3, 3]))
+                 for b in range(B)]
+    nv = (on_mesh.get_graph().n_vertices, plain.get_graph().n_vertices)
+    line("mesh_fleet_test_case", mesh=mesh_names(small), agents=B,
+         steps=MESH_FLEET_TEST_STEPS, max_gap_to_single_device_m=max(dev_gap),
+         final_err_max_m=max(truth_err), keyframes=nv[0],
+         single_device_keyframes=nv[1])
+    if not (max(dev_gap) < MESH_FLEET_GAP_M
+            and max(truth_err) < FLEET_ERR_GATE_M and nv[0] == nv[1]):
+        raise AssertionError(f"mesh_fleet_test_case: gaps {dev_gap}, "
+                             f"errors {truth_err}, vertices {nv}")
+
+    # tp = 1: shard_batch, then one K2 launch per dp chunk of one agent;
+    # every step's poses bit-equal to the unchunked K2 batch's (K2's bits
+    # do not depend on its layout, which follows the batch size).
+    dp_mesh = make_mesh(B, tp=1, devices=[dev] * B)
+    before = fused_icp_register.launches
+    chunked = drive(MultiAgentSlam(FP.fleet_config(), n_agents=B,
+                                   mesh=dp_mesh), MESH_TP1_STEPS)
+    chunk_launches = fused_icp_register.launches - before
+    whole = drive(MultiAgentSlam(FP.fleet_config(), n_agents=B, device=dev),
+                  MESH_TP1_STEPS, count=False)
+    equal = np.array_equal(chunked, whole)
+    line("mesh_fleet_tp1", mesh=mesh_names(dp_mesh), agents=B,
+         steps=MESH_TP1_STEPS, k2_launches=chunk_launches,
+         bits_equal_whole_batch=equal)
+    # An agent's first scan seeds its map and registers nothing.
+    if not (equal and chunk_launches >= B * (MESH_TP1_STEPS - 1)):
+        raise AssertionError(f"mesh_fleet_tp1: poses equal {equal}, K2 "
+                             f"launches {chunk_launches}")
+    return ms
+
+
+def phase_mesh_loop(dev):
+    """The fleet of one on the golden loop at dp = 1 x tp = 8 with
+    synchronous closures (tests/test_golden_replay.py:117-121), held to
+    golden_replay.npz (POSE_TOL_M, +-1 scan); the gap to the
+    single-device fleet of one on the icp_core route is printed (one
+    agent a dp group: the same registration arithmetic)."""
+    from pgslam_tpu_torch import replays
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    gold = replays.fixture("loop")
+    mesh = make_mesh(8, tp=8, devices=[dev] * 8)
+    per_scan, loops, kf, wall = fleet_of_one(dev, "auto", mesh=mesh)
+    with uncounted():
+        core = fleet_of_one(dev, "off")[0]
+    gap = replays.max_pose_gap(per_scan, gold["per_scan_poses"], window=1)
+    line("mesh_loop", mesh=mesh_names(mesh), scans=len(per_scan),
+         keyframes=kf, loop_edges=loops, gap_to_fixture_m=round(gap, 5),
+         gap_to_icp_core_fleet_m=float(np.abs(per_scan - core).max()),
+         ms_per_scan=round(1e3 * wall / len(per_scan), 3))
+    if not (np.isfinite(per_scan).all() and gap < POSE_TOL_M):
+        raise AssertionError(f"mesh_loop: {gap} m from the fixture (limit "
+                             f"{POSE_TOL_M})")
+
+
+def phase_mesh_devices(dev):
+    """With two cards or more: the register on a tp mesh whose groups
+    span two cards, and the tp = 1 route (shard_batch, then one K2 launch
+    per dp chunk on its card), each bit-equal to the one-card run. On one
+    card the line says so."""
+    import torch
+    from pgslam_tpu_torch.ops.icp import ICPConfig
+    from pgslam_tpu_torch.ops import outlier as O
+    from pgslam_tpu_torch.parallel.batched import (batched_register,
+                                                   concat_results,
+                                                   shard_batch)
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    from pgslam_tpu_torch.parallel.sharded_icp import make_sharded_register
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[mesh_devices] devices: {n}, mesh positions share {dev}",
+              flush=True)
+        return
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    cfg = mesh_register_config()
+    args = mesh_register_inputs(dev)
+    one = make_sharded_register(make_mesh(8, tp=2, devices=[dev] * 8),
+                                cfg)(*args)
+    two_mesh = make_mesh(8, tp=2, devices=cards * 4)
+    two = make_sharded_register(two_mesh, cfg)(*args)
+    equal = all(torch.equal(getattr(one, f), getattr(two, f))
+                for f in vars(one))
+    # tp = 1 with K2 (point-to-point: the fleet's registration).
+    k2_cfg = ICPConfig(max_iterations=20,
+                       outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+    whole = batched_register(*args, k2_cfg, fused="on")
+    dp_mesh = make_mesh(4, tp=1, devices=cards * 2)
+    chunks = shard_batch(dp_mesh)(args)
+    split = concat_results([batched_register(*c, k2_cfg, fused="on")
+                            for c in chunks], dev)
+    tp1_equal = all(torch.equal(getattr(whole, f), getattr(split, f))
+                    for f in vars(whole) if getattr(whole, f) is not None)
+    line("mesh_devices", devices=n, mesh=mesh_names(two_mesh),
+         bits_equal_one_card=equal, tp1_mesh=mesh_names(dp_mesh),
+         tp1_chunk_devices=",".join(str(c[0].points.device)
+                                    for c in chunks),
+         tp1_bits_equal_whole_batch=tp1_equal)
+    if not (equal and tp1_equal):
+        raise AssertionError(f"mesh_devices: two cards give other bits "
+                             f"(tp = 2 {equal}, tp = 1 {tp1_equal})")
+
+
 class _FallbackWatch(logging.Handler):
     """Every time the optimizer's resident path failed and its batch went
     the classic way (the reference's fail-soft, which on the card must
@@ -3204,6 +3660,9 @@ def main() -> int:
     fallbacks = _FallbackWatch()
     logging.getLogger("pgslam_tpu_torch.optimizer").addHandler(fallbacks)
     phase_device_and_build()
+    if "--mesh-devices" in argv:
+        phase_mesh_devices(dev)
+        return 0
     if "--resident" in argv:
         phase_resident(dev)
         fallbacks.check("resident")
@@ -3309,7 +3768,7 @@ def main() -> int:
 
     seq5 = config5_sequence()
     reset()
-    fleet_ms = phase_fleet(dev, seq5)
+    fleet_ms, fleet_poses, fleet_nv = phase_fleet(dev, seq5)
     fleet = counts()
     top_shapes("fleet")
     fleet_batches = dict(fused_icp_register.batch_sizes)
@@ -3368,6 +3827,19 @@ def main() -> int:
     if resident_path[2] == 0 or resident_path[3] == 0:
         raise AssertionError(f"a kernel of the resident path never ran "
                              f"(K1-K4 {resident_path})")
+    mesh_match_err = phase_mesh_match(dev, scans)
+    reset()
+    phase_mesh_register(dev)
+    phase_mesh_step(dev)
+    mesh_fleet_ms = phase_mesh_fleet(dev, seq5, fleet_ms, fleet_poses,
+                                     fleet_nv)
+    phase_mesh_loop(dev)
+    phase_mesh_devices(dev)
+    mesh_path = counts()
+    top_shapes("mesh")
+    if min(mesh_path[:3]) == 0:
+        raise AssertionError(f"a kernel of the mesh path never ran (K1-K4 "
+                             f"{mesh_path})")
     fallbacks.check("every path")
     line("launches", per_scan=",".join(map(str, per_scan)),
          pgo=",".join(map(str, pgo_path)), batched=",".join(map(str, batched)),
@@ -3376,6 +3848,7 @@ def main() -> int:
          config=",".join(map(str, config)),
          fused_single=",".join(map(str, fused1)),
          resident=",".join(map(str, resident_path)),
+         mesh=",".join(map(str, mesh_path)),
          fleet_k2_batch_sizes=",".join(f"{b}x{n}" for b, n
                                        in sorted(fleet_batches.items())),
          deferred_k2_batch_sizes=",".join(
@@ -3393,7 +3866,8 @@ def main() -> int:
 
     paths = {"per_scan": per_scan, "pgo": pgo_path, "batched": batched,
              "fleet": fleet, "deferred": deferred, "config": config,
-             "fused_single": fused1, "resident": resident_path}
+             "fused_single": fused1, "resident": resident_path,
+             "mesh": mesh_path}
 
     k1_main = k1_times["2048x8192_k1"]
     k4_16k, k4_1k = k4[("pgo_16k", "initial")], k4[("pgo_1k", "initial")]
@@ -3401,7 +3875,8 @@ def main() -> int:
     k3_1k = k3["pgo_1k_default"]
     rows = [
         ("K1 knn", "knn.cu", "pgslam_tpu/ops/knn_pallas.py:173",
-         k1_err, k1_main["ms"], k1_main["plain_ms"], k1_main["bound"],
+         max(k1_err, mesh_match_err), k1_main["ms"], k1_main["plain_ms"],
+         k1_main["bound"],
          {"shape": "2048 x 8192, k = 1", "layout": k1_main["layout"],
           "device_ms": k1_main["device_ms"],
           "cdist_topk_ms": k1_main["cdist_topk_ms"],
@@ -3412,7 +3887,8 @@ def main() -> int:
           "top_shapes_by_path": {p: [f"{q}x{r}x{k}:{c}"
                                      for (q, r, k), c in top]
                                  for p, top in k1_shapes.items()},
-          "config_ms_per_scan": config_ms}),
+          "config_ms_per_scan": config_ms,
+          "mesh_fleet_ms_per_step": mesh_fleet_ms}),
         ("K2 icp_fused", "icp_fused.cu", "pgslam_tpu/ops/icp_pallas.py:667",
          max(k2h_err, k2_err, k2_aa_err, k2s[0], k2one[0]), k2h_ms, k2h_pms,
          k2h_bnd,

@@ -21,6 +21,13 @@ version beside it that runs on CPU tensors.
                          clouds)
     result = batched_register(readings, references, T_inits, icp_config)
 
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    mesh = make_mesh(8, tp=2)       # dp = 4 x tp = 2 over cuda:0..7; or
+    mesh = make_mesh(8, tp=2, devices=["cuda:0"] * 8)   # on one card
+    fleet = MultiAgentSlam(config, n_agents=16, mesh=mesh)
+    result = make_sharded_register(mesh, icp_config)(readings, references,
+                                                     T_inits)
+
 This package imports torch and numpy only, never jax or pgslam_tpu.
 """
 
@@ -38,8 +45,7 @@ from .cloud import (Cloud, empty_cloud, make_cloud,  # noqa: E402,F401
                     transform_cloud)
 from .ops.icp import ICPConfig, ICPEngine, ICPResult, icp  # noqa: E402,F401
 
-# name -> submodule; each is imported at first use. pgslam_tpu's
-# make_sharded_register (several devices) is not ported yet.
+# name -> submodule; each is imported at first use.
 _LAZY = {
     **dict.fromkeys(("PoseGraphSlam", "SlamConfig"), "slam"),
     "PoseGraphSlamMT": "pipeline",
@@ -47,6 +53,7 @@ _LAZY = {
     "LocalMap": "localmap",
     "MultiAgentSlam": "parallel.multi_agent",
     "batched_register": "parallel.batched",
+    "make_sharded_register": "parallel.sharded_icp",
     **dict.fromkeys(("LocalizerConfig", "Localizer"), "localizer"),
     **dict.fromkeys(("LoopCloserConfig", "LoopCloser"), "loopcloser"),
     **dict.fromkeys(("OptimizerConfig", "Optimizer"), "optimizer"),

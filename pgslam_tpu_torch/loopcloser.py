@@ -25,8 +25,8 @@ from .graph.shortest_path import candidate_composition, dijkstra
 from .localmap import Composition, LocalMap, batch_rebuild
 from .ops import filters as F
 from .ops.icp import (ICPConfig, ICPResult, compute_residual,
-                      eps_dead_zone, eps_margin, fetch_async, icp_core,
-                      pack_result, reference_chain, reference_index,
+                      eps_dead_zone, eps_margin, fetch_async, host_entry,
+                      icp_core, pack_result, reference_chain, reference_index,
                       to_host, unpack_result)
 from .parallel.batched import batched_register, register_one, use_fused
 from .utils import counters
@@ -168,8 +168,9 @@ class LoopCloser:
             torch.as_tensor(np.stack(T0s), device=refs.device),
             self.config.icp)
         accepted_pairs = set()
+        res = to_host(res)
         for i, ((v, _), lm) in enumerate(zip(reqs, lms)):
-            result = to_host(res, index=i)
+            result = host_entry(res, i)
             self.input_vertex = v
             self.input_cloud = graph.clouds[v]
             self.input_T_world_kf = graph.optimized_poses[v].copy()

@@ -88,12 +88,11 @@ class ICPResult:
     diverged: Optional[torch.Tensor] = None
 
 
-def to_host(result: ICPResult, index=None) -> ICPResult:
-    """One host copy of a (batch entry of a) result: numpy arrays for T
-    and cov, numpy scalars for the rest."""
+def to_host(result: ICPResult) -> ICPResult:
+    """One host copy of a result: numpy arrays for T and cov, numpy
+    scalars (or arrays, for a batch) for the rest."""
     def get(x):
-        x = x.detach().cpu().numpy()
-        return x if index is None else x[index]
+        return x.detach().cpu().numpy()
     return ICPResult(T=get(result.T), iterations=get(result.iterations),
                      converged=get(result.converged),
                      max_iter_reached=get(result.max_iter_reached),
@@ -101,6 +100,13 @@ def to_host(result: ICPResult, index=None) -> ICPResult:
                      residual=get(result.residual), cov=get(result.cov),
                      diverged=None if result.diverged is None
                      else get(result.diverged))
+
+
+def host_entry(result: ICPResult, index) -> ICPResult:
+    """Entry ``index`` of a batched host result (:func:`to_host` of the
+    batch): one copy of the batch, indexed on the host."""
+    return ICPResult(**{name: None if v is None else v[index]
+                        for name, v in vars(result).items()})
 
 
 PACKED_WIDTH = 59

@@ -573,13 +573,16 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig,
     window = torch.empty((B * layout.clusters, 2 * L), dtype=torch.float32,
                          device=dev)
     out = torch.empty((B, OUT_WIDTH), dtype=torch.float32, device=dev)
-    err = _build.lib().pgs_icp_fused(
-        reading.points.data_ptr(), reading.mask.data_ptr(), NQ, coarse,
-        reference.points.data_ptr(), nrm.data_ptr(),
-        reference.mask.data_ptr(), NR, T0.data_ptr(), params, iparams,
-        window.data_ptr(), out.data_ptr(), B, layout.clusters,
-        layout.slices, layout.map_cap, layout.local_chunks,
-        layout.smem_bytes, _build.stream_of(T0))
+    # The launch goes to the current device: make it the tensors' (a
+    # mesh's dp chunks may lie on several cards).
+    with torch.cuda.device(dev):
+        err = _build.lib().pgs_icp_fused(
+            reading.points.data_ptr(), reading.mask.data_ptr(), NQ, coarse,
+            reference.points.data_ptr(), nrm.data_ptr(),
+            reference.mask.data_ptr(), NR, T0.data_ptr(), params, iparams,
+            window.data_ptr(), out.data_ptr(), B, layout.clusters,
+            layout.slices, layout.map_cap, layout.local_chunks,
+            layout.smem_bytes, _build.stream_of(T0))
     if err == -2:
         raise RuntimeError(f"K2: no cluster of {layout.clusters} CTAs with "
                            f"{layout.smem_bytes} bytes of shared memory "

@@ -198,10 +198,14 @@ def knn(query, query_mask, reference, reference_mask, k: int = 1,
         layout = k1_layout(nq, nr, k, sm_count(dev))
     d = torch.empty((nq, k), dtype=torch.float32, device=dev)
     i = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    err = _build.lib().pgs_knn(
-        query.data_ptr(), query_mask.data_ptr(), nq, reference.data_ptr(),
-        reference_mask.data_ptr(), nr, k, layout.slices, layout.threads,
-        d.data_ptr(), i.data_ptr(), _build.stream_of(query))
+    # The launch goes to the current device: make it the tensors' (a mesh
+    # may hold shards on several cards).
+    with torch.cuda.device(dev):
+        err = _build.lib().pgs_knn(
+            query.data_ptr(), query_mask.data_ptr(), nq,
+            reference.data_ptr(), reference_mask.data_ptr(), nr, k,
+            layout.slices, layout.threads, d.data_ptr(), i.data_ptr(),
+            _build.stream_of(query))
     _build.check(err, "pgs_knn")
     _build.count_launch(knn, shapes=(nq, nr, k))
     knn.layout = layout

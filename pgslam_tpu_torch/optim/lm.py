@@ -294,12 +294,14 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
                                  ROBUST_CODES[config.robust])
     out = torch.empty((V, 4, 4), dtype=torch.float32, device=dev)
     stats = torch.empty(4, dtype=torch.float32, device=dev)
-    err = _build.lib().pgs_lm(
-        poses.data_ptr(), vmask.data_ptr(), V, ef.data_ptr(), et.data_ptr(),
-        eT.data_ptr(), ec.data_ptr(), rmask.data_ptr(), fixed,
-        meta.data_ptr(), C, NV, NS, layout.smem_bytes, params, iparams,
-        scratch.data_ptr(), out.data_ptr(), stats.data_ptr(),
-        _build.stream_of(poses))
+    # The launch goes to the current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        err = _build.lib().pgs_lm(
+            poses.data_ptr(), vmask.data_ptr(), V, ef.data_ptr(),
+            et.data_ptr(), eT.data_ptr(), ec.data_ptr(), rmask.data_ptr(),
+            fixed, meta.data_ptr(), C, NV, NS, layout.smem_bytes, params,
+            iparams, scratch.data_ptr(), out.data_ptr(), stats.data_ptr(),
+            _build.stream_of(poses))
     if err == -2:
         raise RuntimeError(f"K3: no cluster of {C} CTAs with "
                            f"{layout.smem_bytes} bytes of shared memory "

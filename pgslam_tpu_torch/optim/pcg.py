@@ -270,15 +270,18 @@ def _launch(plan: K4Plan, blocks, P_inv, damp_diag, b, prior_info,
     if total is None:
         total = torch.zeros(1, dtype=torch.int64, device=dev)
         pcg_solve.cg_steps[dev.index] = total
-    err = _build.lib().pgs_pcg(
-        blocks[0].data_ptr(), blocks[1].data_ptr(), blocks[2].data_ptr(),
-        P_inv.data_ptr(), damp_diag.data_ptr(), b.data_ptr(),
-        prior.data_ptr(), plan.ptr.data_ptr(), plan.entries.data_ptr(),
-        plan.meta.data_ptr(), V, lay.ctas, lay.cluster, lay.NV, lay.NS,
-        lay.smem_bytes, int(lay.in_smem), BARRIERS.index(lay.barrier),
-        int(w["publish"]), fixed, int(cg_iterations), float(cg_tol),
-        plan.scratch.data_ptr(), w["bar"], w["pub"], w["work"],
-        out.data_ptr(), total.data_ptr(), _build.stream_of(b))
+    # The launch goes to the current device: make it the tensors'.
+    with torch.cuda.device(dev):
+        err = _build.lib().pgs_pcg(
+            blocks[0].data_ptr(), blocks[1].data_ptr(),
+            blocks[2].data_ptr(), P_inv.data_ptr(), damp_diag.data_ptr(),
+            b.data_ptr(), prior.data_ptr(), plan.ptr.data_ptr(),
+            plan.entries.data_ptr(), plan.meta.data_ptr(), V, lay.ctas,
+            lay.cluster, lay.NV, lay.NS, lay.smem_bytes, int(lay.in_smem),
+            BARRIERS.index(lay.barrier), int(w["publish"]), fixed,
+            int(cg_iterations), float(cg_tol), plan.scratch.data_ptr(),
+            w["bar"], w["pub"], w["work"], out.data_ptr(), total.data_ptr(),
+            _build.stream_of(b))
     _build.check(err, "pgs_pcg")
     _build.count_launch(pcg_solve, shapes=(V, E))
     pcg_solve.layout = lay

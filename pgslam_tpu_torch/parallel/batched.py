@@ -8,7 +8,8 @@ route (the JAX package's CPU route is the vmapped ``icp_core``). The
 reference's switch ``PGSLAM_FUSED_BATCHED`` ("1" on, "0" off) decides
 where a caller leaves the route at "auto" (:func:`fused_mode`); every
 K2 route of the port but the single-scan one goes through
-:func:`use_fused`.
+:func:`use_fused`. :func:`shard_batch` splits a batch over a device
+mesh's dp axis.
 """
 
 from __future__ import annotations
@@ -92,3 +93,55 @@ def batched_register(readings: Cloud, references: Cloud,
         icp_core(readings.map(lambda a: a[b]),
                  references.map(lambda a: a[b]), T_inits[b], cfg)
         for b in range(readings.points.shape[0])])
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of clouds, tuples, lists and
+    tensors."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, Cloud):
+        return tree.map(fn)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, x) for x in tree)
+    return tree
+
+
+def shard_batch(mesh, axis: str = "dp"):
+    """Split a batch's leading agent axis over a mesh axis ("dp" or "tp"
+    of a :class:`.multichip.Mesh`). Torch has no global sharded tensor, so
+    ``put(tree)`` returns a list of the axis' size of chunks, each the
+    tree with every tensor of one or more dimensions cut to its rows of
+    the leading axis (0-d tensors whole): chunk i on ``mesh.devices[i,
+    0]`` for dp, ``mesh.devices[0, i]`` for tp. Run each chunk on its
+    device, e.g. :func:`batched_register`, and concatenate."""
+    if axis not in ("dp", "tp"):
+        raise ValueError(f"axis must be 'dp' or 'tp', not {axis!r}")
+    n = mesh.shape[axis]
+
+    def put(tree):
+        chunks = []
+        for i in range(n):
+            dev = mesh.devices[i, 0] if axis == "dp" else mesh.devices[0, i]
+
+            def cut(x):
+                if x.ndim == 0:
+                    return x.to(dev)
+                if x.shape[0] % n:
+                    raise ValueError(f"a leading axis of {x.shape[0]} does "
+                                     f"not split over {axis}={n}")
+                m = x.shape[0] // n
+                return x[i * m:(i + 1) * m].to(dev)
+            chunks.append(_tree_map(cut, tree))
+        return chunks
+
+    return put
+
+
+def concat_results(parts, device) -> ICPResult:
+    """Batched results of consecutive chunks as one result on
+    ``device``."""
+    return ICPResult(**{
+        name: None if getattr(parts[0], name) is None else torch.cat(
+            [getattr(p, name).to(device) for p in parts])
+        for name in vars(parts[0])})

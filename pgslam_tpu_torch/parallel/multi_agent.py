@@ -1,14 +1,21 @@
 """Multi-agent SLAM: N agents over one shared pose graph (BASELINE config
 5, "16 SLAM instances sharing one pose graph").
 
-Counterpart of :mod:`pgslam_tpu.parallel.multi_agent` on one device.
-Each agent keeps its own Localizer state (local map, composition, pose
-chain); every step registers the whole fleet in one batched registration
-(one K2 launch on the card), evaluates every agent's overlap probe, then
-serializes the graph mutations in agent order (deterministic), verifies
-the keyframes spawned this step in one batch and runs one optimization
-over every accepted closure. Optimization writebacks resync the agents at
-the next step.
+Counterpart of :mod:`pgslam_tpu.parallel.multi_agent`. Each agent keeps
+its own Localizer state (local map, composition, pose chain); every step
+registers the whole fleet in one batched registration (one K2 launch on
+the card), evaluates every agent's overlap probe, then serializes the
+graph mutations in agent order (deterministic), verifies the keyframes
+spawned this step in one batch and runs one optimization over every
+accepted closure. Optimization writebacks resync the agents at the next
+step.
+
+With a (dp, tp) ``mesh`` (:func:`.multichip.make_mesh`) the fleet's
+registration runs over it: with tp > 1 the sharded registration
+(:mod:`.sharded_icp`, agents over dp, each reference's points over tp),
+with tp = 1 :func:`batched_register` on each dp chunk on its device
+(:func:`.batched.shard_batch`). Everything else stays on the mesh's
+first device.
 """
 
 from __future__ import annotations
@@ -25,10 +32,23 @@ from ..localizer import (Localizer, prepare_input_batched,
                          probe_build_batched, probe_overlap_from_batched)
 from ..localmap import batch_rebuild, stack_compositions
 from ..loopcloser import LoopCloser
-from ..ops.icp import to_host
+from ..ops.icp import host_entry, to_host
 from ..optimizer import Optimizer
 from ..slam import SlamConfig
-from .batched import batched_register
+from .batched import batched_register, concat_results, shard_batch
+from .multichip import Mesh
+from .sharded_icp import make_sharded_register
+
+
+def _same_device(a, b) -> bool:
+    """Whether two device specs name one device ("cuda" is the current
+    card)."""
+    def norm(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return norm(a) == norm(b)
 
 
 class MultiAgentSlam:
@@ -36,15 +56,29 @@ class MultiAgentSlam:
     unless the caller passes ``device="cpu"``). ``fused`` routes the
     fleet's registration batch as :func:`batched_register` does ("auto":
     K2 on the card, ``icp_core`` on the CPU; "on": K2, or its plain
-    version on the CPU; "off": ``icp_core``)."""
+    version on the CPU; "off": ``icp_core``). With a ``mesh``
+    (:class:`.multichip.Mesh`) the fleet lives on ``mesh.devices[0, 0]``
+    (a ``device`` that differs raises) and registers over the mesh."""
 
     def __init__(self, config: SlamConfig, n_agents: int, mesh=None,
                  device=None, fused: str = "auto"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device fleet (mesh=) is not ported yet")
         self.config = config
         self.n_agents = n_agents
+        self.mesh = mesh
+        self._tp = 1
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.multichip.Mesh, "
+                                f"not {type(mesh).__name__}")
+            home = mesh.devices[0, 0]
+            if device is not None and not _same_device(device, home):
+                raise ValueError(f"device={device} differs from the mesh's "
+                                 f"first device {home}")
+            device = home
+            self._tp = int(mesh.shape.get("tp", 1))
+            if self._tp > 1:
+                self._sharded = make_sharded_register(mesh,
+                                                      config.localizer.icp)
         self.device = resolve_device(device)
         self.fused = fused
         self.map_manager = MapManager()
@@ -120,15 +154,14 @@ class MultiAgentSlam:
         readings = stack_clouds([preps[b][0] for b in pad_ix])
         T0s = torch.as_tensor(np.stack([preps[b][1] for b in pad_ix]),
                               device=self.device)
-        results = batched_register(readings, references, T0s,
-                                   self.config.localizer.icp,
-                                   fused=self.fused)
+        # One host copy of the fleet's results.
+        results = to_host(self._register(readings, references, T0s))
 
         # Phase 1: pose updates and the overlap-probe requests.
         res_of, probe_req = {}, {}
         for i, b in enumerate(live):
             loc = self.localizers[b]
-            res_of[b] = loc.begin_finish(to_host(results, index=i))
+            res_of[b] = loc.begin_finish(host_entry(results, i))
             comp = loc.neighbor_probe_request()
             if comp is not None:
                 probe_req[b] = comp
@@ -154,6 +187,19 @@ class MultiAgentSlam:
         # optimization over every accepted closure.
         self.loop_closer.process_pending_batched()
         self.optimizer.process_pending()
+
+    def _register(self, readings: Cloud, references: Cloud, T0s):
+        """The fleet's registration batch: over the mesh where there is
+        one, else one :func:`batched_register` call."""
+        cfg = self.config.localizer.icp
+        if self._tp > 1:
+            return self._sharded(readings, references, T0s)
+        if self.mesh is not None:
+            chunks = shard_batch(self.mesh)((readings, references, T0s))
+            return concat_results([batched_register(*c, cfg, fused=self.fused)
+                                   for c in chunks], self.device)
+        return batched_register(readings, references, T0s, cfg,
+                                fused=self.fused)
 
     def _batched_set_map(self, locs) -> None:
         """Rebuild the agents' changed local maps in one batched build and

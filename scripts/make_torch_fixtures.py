@@ -22,13 +22,18 @@ JAX is not installed (``chip_smoke.py``):
 * ``tests/fixtures/golden_replay_grid_eval.npz``: the grid replay's
   per-scan local-map compositions, registration overlaps and ICP
   iterations, and keyframe counts (its per-scan poses must be
-  ``golden_replay_grid.npz``'s).
+  ``golden_replay_grid.npz``'s);
+* ``tests/fixtures/golden_fleet_mesh.npz``: ``MultiAgentSlam`` on the
+  (dp = 4, tp = 2) mesh of 8 virtual CPU devices, as
+  ``tests/test_multi_agent.py::test_multi_agent_on_tp_mesh`` runs it (4
+  agents, 8 steps of the 512-point corridor, seed 7): each step's agent
+  poses and vertex count.
 
 Each replay fixture holds the per-scan poses (the last one the flushed
 pose), the keyframe trajectory, and the keyframe, loop-edge, swap and
 optimizer-run counts. Run on the CPU backend, as the test tier runs JAX:
 
-    python scripts/make_torch_fixtures.py [lag2] [stream4] [yaml] [p2plane] [grid] [long_eval] [grid_eval]
+    python scripts/make_torch_fixtures.py [lag2] [stream4] [yaml] [p2plane] [grid] [long_eval] [grid_eval] [mesh_fleet]
 
 The existing fixtures are not touched. Commit the result.
 """
@@ -40,6 +45,12 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+
+# The mesh fleet needs 8 devices; the other runs use the first.
+_flags = os.environ.get("XLA_FLAGS", "")
+if "xla_force_host_platform_device_count" not in _flags:
+    os.environ["XLA_FLAGS"] = (
+        _flags + " --xla_force_host_platform_device_count=8").strip()
 
 import jax  # noqa: E402
 
@@ -182,11 +193,41 @@ def record_grid_eval() -> str:
     return path
 
 
+def record_mesh_fleet() -> str:
+    """tests/test_multi_agent.py:80-112's fleet on the (dp = 4, tp = 2)
+    mesh: each step's poses [steps, B, 4, 4] and vertex count."""
+    from pgslam_tpu.datasets import corridor_sequence
+    from pgslam_tpu.parallel.multi_agent import MultiAgentSlam
+    from pgslam_tpu.parallel.multichip import make_mesh
+    from test_slam_e2e import small_config
+    scans, odom, _ = corridor_sequence(
+        np.random.default_rng(7), n_scans=12, scan_points=512, step=0.4,
+        noise=0.003, odom_noise=0.005, length=30.0)
+    B, steps = 4, 8
+    fleet = MultiAgentSlam(small_config(), n_agents=B,
+                           mesh=make_mesh(8, tp=2))
+    T_rs = np.eye(4, dtype=np.float32)
+    poses, n_vertices = [], []
+    for i in range(steps):
+        fleet.add_data_batch(i, "world", np.stack([odom[i + b]
+                                                   for b in range(B)]),
+                             T_rs, [scans[i + b] for b in range(B)])
+        poses.append(fleet.poses().copy())
+        n_vertices.append(fleet.get_graph().n_vertices)
+    path = os.path.join(FIXTURES, "golden_fleet_mesh.npz")
+    np.savez_compressed(path, per_step_poses=np.stack(poses),
+                        n_vertices=np.array(n_vertices, np.int32))
+    print(f"wrote {path}: {steps} steps, {n_vertices[-1]} vertices")
+    return path
+
+
 def record(name: str) -> str:
     if name == "long_eval":
         return record_long_eval()
     if name == "grid_eval":
         return record_grid_eval()
+    if name == "mesh_fleet":
+        return record_mesh_fleet()
     run, file = RUNS[name]
     per_scan, trajectory, stats = run()
     path = os.path.join(FIXTURES, file)
@@ -202,7 +243,8 @@ def record(name: str) -> str:
 def main():
     if jax.default_backend() != "cpu":
         raise SystemExit(f"JAX is not on the CPU: {jax.devices()}")
-    for name in sys.argv[1:] or [*RUNS, "long_eval", "grid_eval"]:
+    for name in sys.argv[1:] or [*RUNS, "long_eval", "grid_eval",
+                                 "mesh_fleet"]:
         record(name)
 
 

@@ -44,8 +44,7 @@ from pgslam_tpu_torch.optimizer import pm_cov_to_gtsam_cov
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# pgslam_tpu's top-level names (pgslam_tpu/__init__.py) but the
-# multi-device make_sharded_register, which is not ported yet.
+# pgslam_tpu's top-level names (pgslam_tpu/__init__.py).
 EXPORTED = (
     "empty_cloud", "icp", "PoseGraph", "LocalMap", "LocalizerConfig",
     "Localizer", "LoopCloserConfig", "LoopCloser", "OptimizerConfig",
@@ -53,7 +52,8 @@ EXPORTED = (
     "save_trajectory_kitti", "load_trajectory_kitti", "save_trajectory_tum",
     "load_trajectory_tum", "ate_rmse", "rpe", "align_umeyama",
     "prefetch_clouds", "prefetch_batches", "load_kitti_bin",
-    "save_kitti_bin", "harsh_velodyne_pair", "ScanLoader")
+    "save_kitti_bin", "harsh_velodyne_pair", "ScanLoader",
+    "make_sharded_register")
 
 
 def T_at(x, y=0.0, z=0.0):
@@ -73,8 +73,10 @@ def test_name_resolves(name):
 
 
 def test_unknown_name_raises():
+    """A name neither package has."""
+    assert not hasattr(pgslam_tpu, "make_sharded_registry")
     with pytest.raises(AttributeError):
-        pgslam_tpu_torch.make_sharded_register  # noqa: B018
+        pgslam_tpu_torch.make_sharded_registry  # noqa: B018
 
 
 def test_api_imports_without_jax():
@@ -86,6 +88,8 @@ def test_api_imports_without_jax():
             f"sys.path[:0] = [{REPO!r}, {os.path.join(REPO, 'examples')!r}]\n"
             "import pgslam_tpu_torch as t\n"
             "import pgslam_tpu_torch.native, velodyne_slam_torch\n"
+            "import pgslam_tpu_torch.parallel.multichip\n"
+            "import pgslam_tpu_torch.parallel.sharded_icp\n"
             + "".join(f"t.{n}\n" for n in EXPORTED)
             + "print('imported')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

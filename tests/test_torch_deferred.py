@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from pgslam_tpu_torch import replays
-from pgslam_tpu_torch.ops.icp import (ICPResult, fetch_async, pack_result,
-                                      to_host, unpack_result)
+from pgslam_tpu_torch.ops.icp import (ICPResult, fetch_async, host_entry,
+                                      pack_result, to_host, unpack_result)
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -70,7 +70,8 @@ def test_pack_keeps_the_batch_axis():
     assert packed.shape == (3, 59)
     for b in range(3):
         got, _ = unpack_result(packed[b].numpy())
-        np.testing.assert_array_equal(got.T, to_host(res, index=b).T)
+        np.testing.assert_array_equal(got.T,
+                                      host_entry(to_host(res), b).T)
 
 
 def test_streaming_flush_pads_a_partial_batch():

@@ -349,9 +349,13 @@ def test_agents_with_first_scans_only():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError):
-        MultiAgentSlam(FP.fleet_config(), n_agents=2, mesh=object(),
-                       device="cpu")
+    """A mesh whose first device is not the ``device`` given raises (the
+    mesh route itself: tests/test_torch_multi_agent_mesh.py)."""
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    with pytest.raises(ValueError):
+        MultiAgentSlam(FP.fleet_config(), n_agents=2,
+                       mesh=make_mesh(2, tp=2, devices=["cpu"] * 2),
+                       device=torch.device("cuda", 0))
     with pytest.raises(ValueError):
         MultiAgentSlam(FP.fleet_config(), n_agents=2,
                        device="cpu").add_data_batch(

@@ -406,6 +406,105 @@ def test_fleet_on_the_card(cuda):
     assert fleet.get_graph().n_vertices >= 3
 
 
+@pytest.mark.parametrize("tp", [2, 4, 8])
+@pytest.mark.parametrize("k", [1, 8])
+def test_merged_match_equals_k1_over_the_whole_reference(cuda, tp, k):
+    """K1 on each of tp reference shards, merged (the sharded
+    registration's match): ids, d2 and candidate points bit for bit those
+    of K1 over the whole reference."""
+    from pgslam_tpu_torch.parallel.multichip import shard_match
+    q, qm, r, rm = _k1_inputs(cuda, 512, 1536)
+    whole = knn(q, qm, r, rm, k=k)
+    m = r.shape[0] // tp
+    shards = [(r[j * m:(j + 1) * m], rm[j * m:(j + 1) * m], None)
+              for j in range(tp)]
+    got, pts, _ = shard_match(q, qm, shards, k, cuda)
+    assert torch.equal(got.ids, whole.ids)
+    assert torch.equal(got.dists2, whole.dists2)
+    assert torch.equal(pts, r[whole.ids.long()])
+
+
+def test_sharded_register_b1_equals_icp_core_on_the_card(cuda):
+    """One agent a dp group on a one-card mesh: the sharded registration
+    is the port's icp_core on the card, every field bit for bit."""
+    from pgslam_tpu_torch.ops.icp import icp_core
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    from pgslam_tpu_torch.parallel.sharded_icp import make_sharded_register
+    rng = np.random.default_rng(5)
+    B, N, M = 2, 256, 1024
+    ref = rng.uniform(-3, 3, (B, M, 3)).astype(np.float32)
+    ref[..., 2] = 0.3 * np.sin(ref[..., 0])
+    rd = (ref[:, :N] + rng.normal(0, 0.02, (B, N, 3))).astype(np.float32)
+    cfg = ICPConfig(max_iterations=20,
+                    outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+    rdc = stack_clouds([make_cloud(rd[b], device=cuda) for b in range(B)])
+    rfc = stack_clouds([make_cloud(ref[b], device=cuda) for b in range(B)])
+    T0 = se3.exp(torch.full((B, 6), 0.02, device=cuda))
+    mesh = make_mesh(2 * B, tp=2, devices=[cuda] * (2 * B))
+    res = make_sharded_register(mesh, cfg)(rdc, rfc, T0)
+    for b in range(B):
+        one = icp_core(rdc.map(lambda a: a[b]), rfc.map(lambda a: a[b]),
+                       T0[b], cfg)
+        for name, v in vars(one).items():
+            assert torch.equal(getattr(res, name)[b], v), (b, name)
+
+
+def test_sharded_register_across_two_cards_equals_one_card(cuda):
+    """A dp = 4 x tp = 2 mesh whose tp pairs span cuda:0 and cuda:1: K1
+    launches on each shard's card, and the result is the one-card mesh's
+    bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    from pgslam_tpu_torch.parallel.sharded_icp import make_sharded_register
+    rng = np.random.default_rng(9)
+    B, N, M = 4, 256, 1024
+    ref = rng.uniform(-3, 3, (B, M, 3)).astype(np.float32)
+    ref[..., 2] = 0.3 * np.sin(ref[..., 0])
+    rd = (ref[:, :N] + rng.normal(0, 0.02, (B, N, 3))).astype(np.float32)
+    cfg = ICPConfig(max_iterations=20,
+                    outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+    rdc = stack_clouds([make_cloud(rd[b], device=cuda) for b in range(B)])
+    rfc = stack_clouds([make_cloud(ref[b], device=cuda) for b in range(B)])
+    T0 = se3.exp(torch.full((B, 6), 0.02, device=cuda))
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    one = make_sharded_register(make_mesh(8, tp=2, devices=cards[:1] * 8),
+                                cfg)(rdc, rfc, T0)
+    two = make_sharded_register(make_mesh(8, tp=2, devices=cards * 4),
+                                cfg)(rdc, rfc, T0)
+    for name, v in vars(one).items():
+        assert torch.equal(getattr(two, name), v), name
+
+
+def test_tp1_route_across_two_cards_equals_one_batch(cuda):
+    """The tp = 1 mesh route: shard_batch puts the dp chunks on cuda:0
+    and cuda:1, K2 launches once per chunk on its card, and the
+    concatenated result is the unchunked K2 batch's bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    from pgslam_tpu_torch.ops.icp_fused import fused_icp_register
+    from pgslam_tpu_torch.parallel.batched import (batched_register,
+                                                   concat_results,
+                                                   shard_batch)
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
+    rdc, rfc = (stack_clouds(c) for c in _box_problems(cuda, 4))
+    T0 = torch.eye(4, device=cuda).repeat(4, 1, 1)
+    cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
+                    max_iterations=12)
+    whole = batched_register(rdc, rfc, T0, cfg, fused="on")
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    chunks = shard_batch(make_mesh(4, tp=1, devices=cards * 2))(
+        (rdc, rfc, T0))
+    assert [c[0].points.device for c in chunks] == cards * 2
+    before = fused_icp_register.launches
+    split = concat_results([batched_register(*c, cfg, fused="on")
+                            for c in chunks], cuda)
+    assert fused_icp_register.launches - before == 4
+    for name, v in vars(whole).items():
+        if v is not None:
+            assert torch.equal(getattr(split, name), v), name
+
+
 def _ring(cuda, V=40, seed=1):
     rng = np.random.default_rng(seed)
     a = 2 * np.pi * np.arange(V) / V
@@ -673,8 +772,8 @@ def test_loop_replay_launches_every_kernel(cuda):
 def test_fetch_async_lands_the_packed_result(cuda):
     """One packed result goes to pinned host memory without a blocking
     copy; get() waits on its event and gives to_host's bits."""
-    from pgslam_tpu_torch.ops.icp import (fetch_async, pack_result, to_host,
-                                          unpack_result)
+    from pgslam_tpu_torch.ops.icp import (fetch_async, host_entry,
+                                          pack_result, to_host, unpack_result)
     rds, rfs = _box_problems(cuda, 1)
     cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
                     max_iterations=12)
@@ -683,7 +782,7 @@ def test_fetch_async_lands_the_packed_result(cuda):
     fetch = fetch_async(pack_result(res, torch.tensor([0.5], device=cuda)))
     assert fetch._host.is_pinned()
     got, extra = unpack_result(fetch.get()[0])
-    want = to_host(res, index=0)
+    want = host_entry(to_host(res), 0)
     for f in ("T", "cov", "overlap", "residual", "iterations", "converged"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
     assert extra == 0.5

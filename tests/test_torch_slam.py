@@ -96,15 +96,21 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 
 def test_unported_paths_raise():
-    """The one setting still unported raises NotImplementedError: a fleet
-    on a device mesh. The grid matcher, VoxelGrid's sort method and every
-    filter run now; ``convert.config_from_dict`` names an unknown filter
-    class in its error."""
+    """Nothing is left unported: a fleet on a device mesh builds (its
+    runs: tests/test_torch_multi_agent_mesh.py), and a ``mesh`` that is
+    not a ``parallel.multichip.Mesh`` raises TypeError. The grid matcher,
+    VoxelGrid's sort method and every filter run;
+    ``convert.config_from_dict`` names an unknown filter class in its
+    error."""
     from pgslam_tpu_torch.convert import config_from_dict
     from pgslam_tpu_torch.localizer import LocalizerConfig
     from pgslam_tpu_torch.parallel.multi_agent import MultiAgentSlam
+    from pgslam_tpu_torch.parallel.multichip import make_mesh
     cfg = replays.loop_config()
-    with pytest.raises(NotImplementedError):
+    fleet = MultiAgentSlam(cfg, n_agents=2, device="cpu",
+                           mesh=make_mesh(2, tp=2, devices=["cpu"] * 2))
+    assert fleet.mesh.shape == {"dp": 1, "tp": 2}
+    with pytest.raises(TypeError):
         MultiAgentSlam(cfg, n_agents=2, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="Bogus"):
         config_from_dict(LocalizerConfig, {
