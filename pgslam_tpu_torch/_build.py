@@ -20,6 +20,8 @@ import tempfile
 import threading
 import time
 
+from .utils import timing
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -135,15 +137,19 @@ def lib() -> ctypes.CDLL:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, **tallies) -> None:
+def count_launch(wrapper, kernel: str = "", **tallies) -> None:
     """Count one launch of ``wrapper``'s kernel: one more in
     ``wrapper.launches`` and in ``getattr(wrapper, name)[key]`` for each
-    ``name=key``. Under one lock: the threaded pipeline's workers launch
-    from their own threads, and ``+=`` is not atomic."""
+    ``name=key``, and in the tracer's ``launch.<kernel>`` (``k1`` ...
+    ``k4``) while a profiler records. Under one lock: the threaded
+    pipeline's workers launch from their own threads, and ``+=`` is not
+    atomic."""
     with _COUNT_LOCK:
         wrapper.launches += 1
         for name, key in tallies.items():
             getattr(wrapper, name)[key] += 1
+    if kernel:
+        timing.count("launch." + kernel)
 
 
 def check(err: int, name: str) -> None:

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from . import se3
+from .utils import timing
 
 # Descriptor channels that rotate with the cloud (unit direction fields).
 ROTATED_DESCRIPTORS = ("normals", "observationDirections", "eigVectors")
@@ -84,10 +85,12 @@ def make_cloud(points, mask=None, descriptors=None,
         desc = {k: np.concatenate(
             [v, np.zeros((pad,) + v.shape[1:], np_dtype)])
             for k, v in desc.items()}
-    return Cloud(points=torch.as_tensor(pts, device=device),
-                 mask=torch.as_tensor(m, device=device),
-                 descriptors={k: torch.as_tensor(v, device=device)
-                              for k, v in desc.items()})
+
+    def upload(a):
+        with timing.wait("cloud.upload"):
+            return torch.as_tensor(a, device=device)
+    return Cloud(points=upload(pts), mask=upload(m),
+                 descriptors={k: upload(v) for k, v in desc.items()})
 
 
 def empty_cloud(capacity: int, descriptor_spec: Optional[Dict[str, int]] = None,

@@ -43,6 +43,7 @@ from .ops.icp import (HostFetch, ICPConfig, ICPEngine, ICPResult,
                       compute_overlap, fetch_async, icp_core, pack_result,
                       unpack_result)
 from .parallel.batched import batched_register, fused_ready, register_one
+from .utils import timing
 
 log = logging.getLogger("pgslam_tpu_torch.localizer")
 
@@ -136,8 +137,9 @@ def probe_build_batched(points, masks, descs, Ts, slot_valid, desc_keys,
     chain."""
     pts, mask, desc = build_cloud(points, masks, descs, Ts, slot_valid,
                                   desc_keys)
-    T = torch.as_tensor(np.asarray(T_world_refs, np.float32),
-                        device=pts.device)
+    with timing.wait("localmap.upload"):
+        T = torch.as_tensor(np.asarray(T_world_refs, np.float32),
+                            device=pts.device)
     worlds = transform_cloud(T, Cloud(points=pts, mask=mask,
                                       descriptors=desc))
     return [F.apply_chain(ref_chain, worlds.map(lambda a: a[i]))
@@ -227,7 +229,9 @@ class Localizer:
         self._microbuf: list = []
 
     def _tensor(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        with timing.wait("localizer.upload"):
+            return torch.as_tensor(np.asarray(a, np.float32),
+                                   device=self.device)
 
     # -- configuration setters ---------------------------------------------
 
@@ -265,6 +269,7 @@ class Localizer:
         self.process_data(np.asarray(T_world_robot, np.float32),
                           np.asarray(T_robot_sensor, np.float32), cloud)
 
+    @timing.spanned("pgslam.frontend")
     def process_data(self, input_T_world_robot: np.ndarray,
                      input_T_robot_sensor: np.ndarray,
                      input_cloud: Cloud) -> None:
@@ -344,18 +349,20 @@ class Localizer:
         """Input preparation, the registration from ``T0`` and the
         neighbour probe at the post-ICP pose; the packed result's copy to
         the host is started, nothing waits for it."""
-        cloud = prepare_input(self.config.input_filters,
-                              self.config.keyframe_cloud_capacity,
-                              input_cloud, self._tensor(T_rs),
-                              self.count - 1)
-        reading = self.icp_engine.prepare_reading(cloud)
+        with timing.span("pgslam.frontend.filters"):
+            cloud = prepare_input(self.config.input_filters,
+                                  self.config.keyframe_cloud_capacity,
+                                  input_cloud, self._tensor(T_rs),
+                                  self.count - 1)
+            reading = self.icp_engine.prepare_reading(cloud)
         probe_comp = self.neighbor_probe_request(T_world_robot=T_pred)
         cfg, ref = self.icp_engine.config, self.icp_engine.reference
-        if single_route(cfg, ref, self.device):
-            result = register_one(reading, ref, self._tensor(T0), cfg)
-        else:
-            result = icp_core(reading, ref, self._tensor(T0), cfg,
-                              self.icp_engine.index)
+        with timing.span("pgslam.frontend.icp"):
+            if single_route(cfg, ref, self.device):
+                result = register_one(reading, ref, self._tensor(T0), cfg)
+            else:
+                result = icp_core(reading, ref, self._tensor(T0), cfg,
+                                  self.icp_engine.index)
         ov = None
         if probe_comp is not None:
             ov = compute_overlap(reading, self._cached_probe_map(probe_comp),
@@ -483,9 +490,13 @@ class Localizer:
         filters."""
         log.info("[Localizer] Processing cloud #%d", self.count)
         self.count += 1
-        cloud = prepared if prepared is not None else prepare_input(
-            self.config.input_filters, self.config.keyframe_cloud_capacity,
-            input_cloud, self._tensor(input_T_robot_sensor), self.count - 1)
+        cloud = prepared
+        if cloud is None:
+            with timing.span("pgslam.frontend.filters"):
+                cloud = prepare_input(
+                    self.config.input_filters,
+                    self.config.keyframe_cloud_capacity, input_cloud,
+                    self._tensor(input_T_robot_sensor), self.count - 1)
         self.input_cloud = cloud
         if not self.local_map.has_cloud():
             self.process_first_cloud(cloud, input_T_world_robot)
@@ -494,7 +505,8 @@ class Localizer:
             return None
         input_T_refkf_robot = self._odometry_guess(input_T_world_robot)
         if reading is None:
-            reading = self.icp_engine.prepare_reading(cloud)
+            with timing.span("pgslam.frontend.filters"):
+                reading = self.icp_engine.prepare_reading(cloud)
         self._last_reading = reading
         return reading, input_T_refkf_robot
 
@@ -509,7 +521,9 @@ class Localizer:
         """Pose composition from an ICP result (on the device or the
         host); returns it on the host."""
         if isinstance(result.T, torch.Tensor):
-            result, _ = unpack_result(pack_result(result).cpu())
+            with timing.wait("localizer.fetch"):
+                vec = pack_result(result).cpu()
+            result, _ = unpack_result(vec)
         self.last_result = result
         self.T_refkf_robot = _orthonormalize(np.asarray(result.T))
         self.T_world_robot = _orthonormalize(
@@ -523,7 +537,7 @@ class Localizer:
         self.next_composition.push_back(v)
         self.local_map.update_to_new_composition(self.mm.get_graph(),
                                                  self.next_composition)
-        self.icp_engine.set_map(self.local_map.cloud())
+        self.finish_apply()
         self.T_refkf_robot = np.eye(4, dtype=np.float32)
         self.T_world_robot = np.asarray(T_world_robot, np.float32)
 
@@ -596,8 +610,10 @@ class Localizer:
         return True
 
     def finish_apply(self) -> None:
-        """Install the (re)built local-map cloud as the ICP reference."""
-        self.icp_engine.set_map(self.local_map.cloud())
+        """Install the (re)built local-map cloud as the ICP reference (its
+        reference filter chain is part of the local map's build)."""
+        with timing.span("pgslam.localmap.build"):
+            self.icp_engine.set_map(self.local_map.cloud())
 
     def update_refkf_robot_pose(self) -> None:
         Tinv = _rigid_inverse(
@@ -669,19 +685,22 @@ class Localizer:
         world frame (cached), at the current world pose."""
         if reading is None:
             reading = self.icp_engine.prepare_reading(self.input_cloud)
-        return float(compute_overlap(reading, self._cached_probe_map(comp),
-                                     self._tensor(self.T_world_robot),
-                                     self.icp_engine.config))
+        ov = compute_overlap(reading, self._cached_probe_map(comp),
+                             self._tensor(self.T_world_robot),
+                             self.icp_engine.config)
+        with timing.wait("localizer.overlap"):
+            return float(ov)
 
     def _cached_probe_map(self, comp: Composition) -> Cloud:
         """The candidate map in the world frame after the reference
         filters, cached per (composition, member update times)."""
         world = self._probe_cache_get(comp)
         if world is None:
-            world = probe_build_batched(
-                *stack_compositions(self.mm.get_graph(), [comp.as_list()],
-                                    comp.capacity),
-                self.config.icp.reference_filters)[0]
+            with timing.span("pgslam.localmap.build"):
+                world = probe_build_batched(
+                    *stack_compositions(self.mm.get_graph(),
+                                        [comp.as_list()], comp.capacity),
+                    self.config.icp.reference_filters)[0]
             self._probe_cache_put(comp, world)
         return world
 

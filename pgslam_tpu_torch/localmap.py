@@ -13,6 +13,7 @@ import torch
 from . import se3
 from .cloud import ROTATED_DESCRIPTORS, Cloud
 from .graph.pose_graph import Keyframe, PoseGraph
+from .utils import timing
 
 
 class Composition:
@@ -129,9 +130,11 @@ def _stack_many(kf_lists, capacity: int):
     masks = torch.stack(mask_l).reshape(M, C, ncap)
     descs = {k: torch.stack(v).reshape(M, C, ncap, -1)
              for k, v in desc_l.items()}
-    Ts = torch.as_tensor(np.stack(Ts_l).reshape(M, C, 4, 4), device=dev)
-    slot_valid = torch.as_tensor(np.asarray(valid_l).reshape(M, C),
-                                 device=dev)
+    with timing.wait("localmap.upload"):
+        Ts = torch.as_tensor(np.stack(Ts_l).reshape(M, C, 4, 4), device=dev)
+    with timing.wait("localmap.upload"):
+        slot_valid = torch.as_tensor(np.asarray(valid_l).reshape(M, C),
+                                     device=dev)
     return (points, masks, descs, Ts, slot_valid, desc_keys,
             np.stack(T_refs))
 
@@ -163,10 +166,11 @@ def batch_rebuild(local_maps, pad_to: int = 0,
     C = local_maps[0]._capacity
     if any(lm._capacity != C for lm in lms):
         raise ValueError("batch_rebuild requires equal map capacities")
-    points, masks, descs, Ts, slot_valid, desc_keys, _ = _stack_many(
-        [[kf for _, kf in lm._data] for lm in lms], C)
-    pts, mask, out_desc = build_cloud(points, masks, descs, Ts, slot_valid,
-                                      desc_keys)
+    with timing.span("pgslam.localmap.build"):
+        points, masks, descs, Ts, slot_valid, desc_keys, _ = _stack_many(
+            [[kf for _, kf in lm._data] for lm in lms], C)
+        pts, mask, out_desc = build_cloud(points, masks, descs, Ts,
+                                          slot_valid, desc_keys)
     for i, lm in enumerate(local_maps):
         lm._cloud = Cloud(points=pts[i], mask=mask[i],
                           descriptors={k: v[i] for k, v in out_desc.items()})
@@ -217,8 +221,9 @@ class LocalMap:
 
     def cloud_in_world_frame(self) -> Cloud:
         from .cloud import transform_cloud
-        T = torch.as_tensor(self.reference_keyframe().optimized_T_world_kf,
-                            device=self._cloud.device)
+        with timing.wait("localmap.upload"):
+            T = torch.as_tensor(self.reference_keyframe().optimized_T_world_kf,
+                                device=self._cloud.device)
         return transform_cloud(T, self._cloud)
 
     def get_composition(self) -> Composition:
@@ -259,8 +264,9 @@ class LocalMap:
         if not self._data:
             self._cloud = None
             return
-        points, masks, descs, Ts, slot_valid, desc_keys, _ = \
-            stack_keyframes([kf for _, kf in self._data], self._capacity)
-        pts, mask, out_desc = build_cloud(points, masks, descs, Ts,
-                                          slot_valid, desc_keys)
-        self._cloud = Cloud(points=pts, mask=mask, descriptors=out_desc)
+        with timing.span("pgslam.localmap.build"):
+            points, masks, descs, Ts, slot_valid, desc_keys, _ = \
+                stack_keyframes([kf for _, kf in self._data], self._capacity)
+            pts, mask, out_desc = build_cloud(points, masks, descs, Ts,
+                                              slot_valid, desc_keys)
+            self._cloud = Cloud(points=pts, mask=mask, descriptors=out_desc)

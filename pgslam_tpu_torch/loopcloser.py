@@ -29,7 +29,7 @@ from .ops.icp import (ICPConfig, ICPResult, compute_residual,
                       icp_core, pack_result, reference_chain, reference_index,
                       to_host, unpack_result)
 from .parallel.batched import batched_register, register_one, use_fused
-from .utils import counters
+from .utils import counters, timing
 
 log = logging.getLogger("pgslam_tpu_torch.loopcloser")
 
@@ -79,8 +79,11 @@ def verify_batch(readings: Cloud, refs: Cloud, T0s: torch.Tensor,
     chain = reference_chain(cfg, refs)
     rf = [F.apply_chain(chain, refs.map(lambda a: a[b])) for b in range(B)]
     res = batched_register(stack_clouds(rd), stack_clouds(rf), T0s, cfg)
-    residuals = [float(compute_residual(r, m, res.T[b], cfg))
-                 for b, (r, m) in enumerate(zip(rd, rf))]
+    residuals = []
+    for b, (r, m) in enumerate(zip(rd, rf)):
+        residual = compute_residual(r, m, res.T[b], cfg)
+        with timing.wait("loopcloser.residual"):
+            residuals.append(float(residual))
     return res, residuals
 
 
@@ -135,6 +138,7 @@ class LoopCloser:
         while self._deferred:
             self._commit_verification(self._deferred.pop(0))
 
+    @timing.spanned("pgslam.loopcloser.verify")
     def process_pending_batched(self) -> None:
         """Verify every queued vertex: the host candidate searches, one
         batched candidate-map build, one batched verification, then the
@@ -163,10 +167,10 @@ class LoopCloser:
                 ).astype(np.float32) for (v, _), lm in zip(reqs, lms)]
         readings += [readings[0]] * (bucket - n)
         T0s += [T0s[0]] * (bucket - n)
-        res, residuals = verify_batch(
-            stack_clouds(readings), refs,
-            torch.as_tensor(np.stack(T0s), device=refs.device),
-            self.config.icp)
+        with timing.wait("loopcloser.upload"):
+            T0s = torch.as_tensor(np.stack(T0s), device=refs.device)
+        res, residuals = verify_batch(stack_clouds(readings), refs, T0s,
+                                      self.config.icp)
         accepted_pairs = set()
         res = to_host(res)
         for i, ((v, _), lm) in enumerate(zip(reqs, lms)):
@@ -198,6 +202,7 @@ class LoopCloser:
                 log.info("[LoopCloser] Loop closure rejected for vertex %d",
                          v)
 
+    @timing.spanned("pgslam.loopcloser.vertex")
     def process_vertex(self, input_vertex: int) -> None:
         rec = self._dispatch_verification(input_vertex)
         if rec is not None:
@@ -220,7 +225,9 @@ class LoopCloser:
         self.input_vertex = input_vertex
         if not self.process_local_map_candidate():
             return None
-        T0 = torch.as_tensor(self._verification_init(), device=self.device)
+        with timing.wait("loopcloser.upload"):
+            T0 = torch.as_tensor(self._verification_init(),
+                                 device=self.device)
         packed = verify(self.input_cloud, self.candidate_local_map.cloud(),
                         T0, self.config.icp)
         rec = {"vertex": input_vertex, "lm": self.candidate_local_map,
@@ -378,6 +385,9 @@ class LoopCloser:
         ref_cloud = self.candidate_local_map.cloud()
         reading = F.apply_chain(cfg.reading_filters, self.input_cloud)
         ref = F.apply_chain(reference_chain(cfg, ref_cloud), ref_cloud)
-        T = torch.as_tensor(np.asarray(self.T_refkf_kf, np.float32),
-                            device=ref.device)
-        return float(compute_residual(reading, ref, T, cfg))
+        with timing.wait("loopcloser.upload"):
+            T = torch.as_tensor(np.asarray(self.T_refkf_kf, np.float32),
+                                device=ref.device)
+        residual = compute_residual(reading, ref, T, cfg)
+        with timing.wait("loopcloser.residual"):
+            return float(residual)

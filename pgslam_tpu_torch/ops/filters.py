@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..cloud import Cloud
+from ..utils import timing
 from .knn import knn, sq_norm
 
 
@@ -227,7 +228,8 @@ def compute_normals(cloud: Cloud, *, knn_k: int = 8,
     centered = (neigh - mean[:, None, :]) * w[..., None]
     cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
     cov = cov + 1e-9 * torch.eye(3, dtype=pts.dtype, device=pts.device)
-    eigvals, eigvecs = torch.linalg.eigh(cov)                  # ascending
+    with timing.wait("filters.normals"):     # eigh checks on the host
+        eigvals, eigvecs = torch.linalg.eigh(cov)              # ascending
     normal = eigvecs[..., 0]
     if orient and "observationDirections" in cloud.descriptors:
         obs = cloud.descriptors["observationDirections"]
@@ -300,8 +302,10 @@ def apply_one(cfg, cloud: Cloud,
     if isinstance(cfg, Compact):
         return compact(cloud, cfg.capacity)
     if isinstance(cfg, ObservationDirection):
-        center = torch.tensor([cfg.x, cfg.y, cfg.z], dtype=cloud.points.dtype,
-                              device=cloud.device)
+        with timing.wait("filters.upload"):
+            center = torch.tensor([cfg.x, cfg.y, cfg.z],
+                                  dtype=cloud.points.dtype,
+                                  device=cloud.device)
         vec = center[None, :] - cloud.points
         norm = torch.sqrt(sq_norm(vec))[:, None]
         return cloud.with_descriptor("observationDirections",

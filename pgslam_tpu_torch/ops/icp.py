@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import se3
+from ..utils import timing
 from ..cloud import Cloud
 from . import filters as F
 from . import minimizer as M
@@ -92,7 +93,8 @@ def to_host(result: ICPResult) -> ICPResult:
     """One host copy of a result: numpy arrays for T and cov, numpy
     scalars (or arrays, for a batch) for the rest."""
     def get(x):
-        return x.detach().cpu().numpy()
+        with timing.wait("icp.to_host"):
+            return x.detach().cpu().numpy()
     return ICPResult(T=get(result.T), iterations=get(result.iterations),
                      converged=get(result.converged),
                      max_iter_reached=get(result.max_iter_reached),
@@ -172,9 +174,10 @@ class HostFetch:
             self._event = self._source = None
 
     def get(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = self._source = None
+        with timing.wait("fetch.event"):
+            if self._event is not None:
+                self._event.synchronize()
+                self._event = self._source = None
         return self._host.numpy()
 
 
@@ -276,8 +279,10 @@ def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
             T = T_plain
         dts = torch.cat([se3.translation_norm(delta)[None], dts[:-1]])
         drs = torch.cat([se3.rotation_angle(delta)[None], drs[:-1]])
-        converged = bool((dts.mean() < cfg.trans_eps)
-                         & (drs.mean() < cfg.rot_eps))
+        with timing.wait("icp.converged"):
+            converged = bool((dts.mean() < cfg.trans_eps)
+                             & (drs.mean() < cfg.rot_eps))
+        timing.count("icp.iterations")
         it += 1
     return T, it, converged
 
@@ -316,13 +321,16 @@ def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
     T, iterations, converged = _icp_loop(reading, reference, T0, cfg,
                                          cfg.max_iterations, index)
     T, diverged = bound_check(T, T_start, cfg)
-    converged = torch.tensor(converged, device=T.device) & ~diverged
+    with timing.wait("icp.upload"):
+        converged = torch.tensor(converged, device=T.device)
+    converged = converged & ~diverged
 
     pts = se3.apply(T, reading.points)
     matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg,
                                         index)
     elems = build_error_elements(pts, reference, matches, weights, cfg)
-    iters = torch.tensor(iterations, dtype=torch.int32, device=T.device)
+    with timing.wait("icp.upload"):
+        iters = torch.tensor(iterations, dtype=torch.int32, device=T.device)
     return ICPResult(
         T=T, iterations=iters, converged=converged,
         max_iter_reached=(iters >= cfg.max_iterations) & ~converged,

@@ -591,7 +591,7 @@ def _launch(reading: Cloud, reference: Cloud, T_init, cfg: ICPConfig,
         raise RuntimeError(f"K2: layout {layout} does not cover {NQ} "
                            "reading points in its shared memory")
     _build.check(err, "pgs_icp_fused")
-    _build.count_launch(fused_icp_register, batch_sizes=B)
+    _build.count_launch(fused_icp_register, "k2", batch_sizes=B)
     fused_icp_register.layout = layout
     return out
 

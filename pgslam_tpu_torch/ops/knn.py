@@ -207,7 +207,7 @@ def knn(query, query_mask, reference, reference_mask, k: int = 1,
             layout.slices, layout.threads, d.data_ptr(), i.data_ptr(),
             _build.stream_of(query))
     _build.check(err, "pgs_knn")
-    _build.count_launch(knn, shapes=(nq, nr, k))
+    _build.count_launch(knn, "k1", shapes=(nq, nr, k))
     knn.layout = layout
     return Matches(dists2=d, ids=i)
 

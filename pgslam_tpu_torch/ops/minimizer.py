@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 
 from .. import se3
+from ..utils import timing
 
 # Below this weighted support a rigid fit is garbage: the step becomes
 # the identity and the overlap statistic reports the failure.
@@ -70,7 +71,9 @@ def point_to_plane(elems: ErrorElements) -> torch.Tensor:
     """One linearized point-to-plane solve; returns the 4x4 delta."""
     A, b, _ = p2plane_system(elems)
     A = A + 1e-6 * torch.eye(6, dtype=A.dtype, device=A.device)
-    x = torch.linalg.solve(A, b)
+    # linalg.solve checks its factorization on the host.
+    with timing.wait("minimizer.solve"):
+        x = torch.linalg.solve(A, b)
     return _degenerate_guard(se3.exp(x), elems.weights)
 
 
@@ -105,5 +108,7 @@ def covariance(elems: ErrorElements, error: str) -> torch.Tensor:
         ssr = (w * (diff * diff).sum(-1)).sum()
         n_res = 3.0 * wsum
     dof = torch.clamp(n_res - 6.0, min=1.0)
-    cov = (ssr / dof) * torch.linalg.inv(A + 1e-9 * eye6)
+    with timing.wait("minimizer.inv"):
+        inv = torch.linalg.inv(A + 1e-9 * eye6)
+    cov = (ssr / dof) * inv
     return cov + 1e-12 * eye6

@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import timing
 from .knn import Matches
 
 
@@ -60,8 +61,9 @@ def kth_keep(ratio: float, n_valid: torch.Tensor,
              dtype=torch.float32) -> torch.Tensor:
     """``ceil(ratio * n_valid)`` in ``dtype`` (the distances' dtype; fp32
     on the main path), as the JAX package computes it."""
-    return torch.ceil(torch.tensor(ratio, dtype=dtype, device=n_valid.device)
-                      * n_valid.to(dtype))
+    with timing.wait("outlier.upload"):
+        r = torch.tensor(ratio, dtype=dtype, device=n_valid.device)
+    return torch.ceil(r * n_valid.to(dtype))
 
 
 def _sorted_valid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -76,7 +78,9 @@ def trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
     distance (the first one when no distance is valid)."""
     s = _sorted_valid(d2, valid)
     kth = kth_keep(ratio, valid.sum(), d2.dtype).to(torch.int64) - 1
-    return s[torch.clamp(kth, 0, s.shape[0] - 1)]
+    # A 0-d index tensor is read on the host (``.item()``).
+    with timing.wait("outlier.threshold"):
+        return s[torch.clamp(kth, 0, s.shape[0] - 1)]
 
 
 def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -85,7 +89,8 @@ def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     s = _sorted_valid(d2, valid)
     n_valid = torch.clamp(valid.sum(), min=1).to(d2.dtype)
     idx = (0.5 * n_valid).to(torch.int64)
-    return s[torch.clamp(idx, 0, s.shape[0] - 1)]
+    with timing.wait("outlier.threshold"):
+        return s[torch.clamp(idx, 0, s.shape[0] - 1)]
 
 
 def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
@@ -102,7 +107,8 @@ def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
     psi = e / torch.clamp(r, min=1e-9) ** cfg.lam
     in_band = (r >= cfg.min_ratio) & (r <= cfg.max_ratio)
     psi = torch.where(in_band, psi, float("inf"))
-    return s[torch.argmin(psi)]
+    with timing.wait("outlier.threshold"):
+        return s[torch.argmin(psi)]
 
 
 def compute_weights(chain: OutlierChain, matches: Matches,
@@ -129,8 +135,10 @@ def compute_weights(chain: OutlierChain, matches: Matches,
                 continue
             cos = torch.abs((reading_normals[:, None, :]
                              * reference_normals).sum(-1))
-            keep = cos >= torch.cos(torch.tensor(
-                cfg.max_angle, dtype=cos.dtype, device=cos.device))
+            with timing.wait("outlier.upload"):
+                max_angle = torch.tensor(cfg.max_angle, dtype=cos.dtype,
+                                         device=cos.device)
+            keep = cos >= torch.cos(max_angle)
         else:
             raise TypeError(f"unknown outlier filter {type(cfg)}")
         w = w * keep.to(w.dtype)

@@ -307,7 +307,7 @@ def _launch(poses, vmask, edge_from, edge_to, edge_T, edge_cov, emask,
                            f"{layout.smem_bytes} bytes of shared memory "
                            "each schedules")
     _build.check(err, "pgs_lm")
-    _build.count_launch(lm_optimize)
+    _build.count_launch(lm_optimize, "k3")
     lm_optimize.layout = layout
     return finish_poses(out, poses, vmask), {
         "initial_cost": stats[0], "final_cost": stats[1],

@@ -283,7 +283,7 @@ def _launch(plan: K4Plan, blocks, P_inv, damp_diag, b, prior_info,
             w["bar"], w["pub"], w["work"], out.data_ptr(), total.data_ptr(),
             _build.stream_of(b))
     _build.check(err, "pgs_pcg")
-    _build.count_launch(pcg_solve, shapes=(V, E))
+    _build.count_launch(pcg_solve, "k4", shapes=(V, E))
     pcg_solve.layout = lay
     return out[:6 * V].view(V, 6), out[6 * V:6 * V + 1].view(torch.int32)[0]
 

@@ -52,9 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import os
 import threading
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -63,6 +61,7 @@ import torch
 from .. import _build, se3
 from ..graph.pose_graph import LOOP_CONSTRAINT
 from ..optimizer import _bucket, pad_graph
+from ..utils import timing
 from . import pgo
 from .lm import edge_csr_ptr_host
 
@@ -364,17 +363,7 @@ class ResidentPGO:
         st["nv"], st["ne"] = prep.nv, ne
         self.last_upload_bytes = self.last_rebuild_bytes if prep.rebuild \
             else up
-        if os.environ.get("PGSLAM_PGO_PROBE_TIMING", "") == "1":
-            # Measurement only (one more synchronization): the solve and
-            # the fetch of the packed result apart.
-            t0 = time.perf_counter()
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self.last_solve_ms = (time.perf_counter() - t0) * 1e3
-            t0 = time.perf_counter()
-            vec = packed.cpu().numpy()
-            self.last_fetch_ms = (time.perf_counter() - t0) * 1e3
-        else:
+        with timing.wait("optimizer.fetch"):
             vec = packed.cpu().numpy()
         self.last_download_bytes = vec.nbytes
         poses = _unpack_poses_host(vec[:-len(STATS)], st["V"], prep.pack)

@@ -23,6 +23,7 @@ import torch
 from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .devices import resolve_device
 from .optim.pgo import PGOConfig, optimize_pose_graph
+from .utils import timing
 
 log = logging.getLogger("pgslam_tpu_torch.optimizer")
 
@@ -124,6 +125,7 @@ class Optimizer:
             return False
         return self.config.resident != "off"
 
+    @timing.spanned("pgslam.optimizer.optimize")
     def process_data(self) -> None:
         log.info("[Optimizer] Building factor graph with %d new loop "
                  "closing factors", len(self.data_buffer))
@@ -150,8 +152,12 @@ class Optimizer:
             args, rmask = self.prepare_for_optimization()
             new_poses, stats = optimize_pose_graph(
                 *args, robust_emask=rmask, config=self.config.pgo)
-            self.last_stats = {k: float(v) for k, v in stats.items()}
-            new_poses = new_poses.cpu().numpy()
+            self.last_stats = {}
+            for k, v in stats.items():
+                with timing.wait("optimizer.fetch"):
+                    self.last_stats[k] = float(v)
+            with timing.wait("optimizer.fetch"):
+                new_poses = new_poses.cpu().numpy()
         log.info("[Optimizer] cost %.3e -> %.3e in %d iters",
                  self.last_stats["initial_cost"],
                  self.last_stats["final_cost"],
@@ -194,8 +200,13 @@ class Optimizer:
             rm = np.zeros(len(arrays[2]), bool)
             rm[:ne] = g.edge_type[:ne] == LOOP_CONSTRAINT
             rm[ne:ne + n_pending] = True
-            rmask = torch.as_tensor(rm, device=self.device)
-        args = tuple(torch.as_tensor(a, device=self.device) for a in arrays)
+            with timing.wait("optimizer.upload"):
+                rmask = torch.as_tensor(rm, device=self.device)
+        args = []
+        for a in arrays:
+            with timing.wait("optimizer.upload"):
+                args.append(torch.as_tensor(a, device=self.device))
+        args = tuple(args)
         return args + (self.mm.get_fixed_vertex(),), rmask
 
     def update_after_optimization(self, new_poses: np.ndarray) -> None:

@@ -35,6 +35,7 @@ from ..loopcloser import LoopCloser
 from ..ops.icp import host_entry, to_host
 from ..optimizer import Optimizer
 from ..slam import SlamConfig
+from ..utils import timing
 from .batched import batched_register, concat_results, shard_batch
 from .multichip import Mesh
 from .sharded_icp import make_sharded_register
@@ -115,6 +116,12 @@ class MultiAgentSlam:
         """Feed one scan per agent; the fleet's registrations run as one
         batch."""
         del timestamp, world_frame_id
+        with timing.span("pgslam.fleet.step", step=True):
+            timing.count("steps")
+            timing.count("scans", self.n_agents)
+            self._step(T_world_robot, T_robot_sensor, clouds)
+
+    def _step(self, T_world_robot, T_robot_sensor, clouds) -> None:
         B = self.n_agents
         if len(clouds) != B:
             raise ValueError(f"expected {B} clouds, got {len(clouds)}")
@@ -129,42 +136,47 @@ class MultiAgentSlam:
                                if loc.resync_from_graph(build=False)])
 
         # Input preparation and reading filters for the whole fleet.
-        raw = [c if isinstance(c, Cloud) else make_cloud(
-            np.asarray(c), capacity=self.config.sensor_cloud_capacity,
-            device=self.device) for c in clouds]
-        lcfg = self.config.localizer
-        prepped, readings_all = prepare_input_batched(
-            lcfg.input_filters, lcfg.keyframe_cloud_capacity, raw,
-            torch.as_tensor(T_rs, device=self.device),
-            reading_chain=lcfg.icp.reading_filters,
-            seeds=[loc.count for loc in self.localizers])
-        preps = [loc.prepare_scan(T_world_robot[b], T_rs[b], raw[b],
-                                  prepared=prepped[b],
-                                  reading=readings_all[b])
-                 for b, loc in enumerate(self.localizers)]
-        live = [b for b, p in enumerate(preps) if p is not None]
-        if not live:
-            return
+        with timing.span("pgslam.fleet.prepare"):
+            raw = [c if isinstance(c, Cloud) else make_cloud(
+                np.asarray(c), capacity=self.config.sensor_cloud_capacity,
+                device=self.device) for c in clouds]
+            lcfg = self.config.localizer
+            with timing.wait("fleet.upload"):
+                T_rs_dev = torch.as_tensor(T_rs, device=self.device)
+            prepped, readings_all = prepare_input_batched(
+                lcfg.input_filters, lcfg.keyframe_cloud_capacity, raw,
+                T_rs_dev, reading_chain=lcfg.icp.reading_filters,
+                seeds=[loc.count for loc in self.localizers])
+            preps = [loc.prepare_scan(T_world_robot[b], T_rs[b], raw[b],
+                                      prepared=prepped[b],
+                                      reading=readings_all[b])
+                     for b, loc in enumerate(self.localizers)]
+            live = [b for b, p in enumerate(preps) if p is not None]
+            if not live:
+                return
 
-        # One registration batch at the fleet's size: the live agents
-        # padded with copies of the first.
-        pad_ix = live + [live[0]] * (B - len(live))
-        references = stack_clouds([self.localizers[b].icp_engine.reference
-                                   for b in pad_ix])
-        readings = stack_clouds([preps[b][0] for b in pad_ix])
-        T0s = torch.as_tensor(np.stack([preps[b][1] for b in pad_ix]),
-                              device=self.device)
+            # One registration batch at the fleet's size: the live agents
+            # padded with copies of the first.
+            pad_ix = live + [live[0]] * (B - len(live))
+            references = stack_clouds(
+                [self.localizers[b].icp_engine.reference for b in pad_ix])
+            readings = stack_clouds([preps[b][0] for b in pad_ix])
+            with timing.wait("fleet.upload"):
+                T0s = torch.as_tensor(np.stack([preps[b][1] for b in pad_ix]),
+                                      device=self.device)
         # One host copy of the fleet's results.
-        results = to_host(self._register(readings, references, T0s))
+        with timing.span("pgslam.fleet.register"):
+            results = to_host(self._register(readings, references, T0s))
 
         # Phase 1: pose updates and the overlap-probe requests.
         res_of, probe_req = {}, {}
-        for i, b in enumerate(live):
-            loc = self.localizers[b]
-            res_of[b] = loc.begin_finish(host_entry(results, i))
-            comp = loc.neighbor_probe_request()
-            if comp is not None:
-                probe_req[b] = comp
+        with timing.span("pgslam.fleet.agents"):
+            for i, b in enumerate(live):
+                loc = self.localizers[b]
+                res_of[b] = loc.begin_finish(host_entry(results, i))
+                comp = loc.neighbor_probe_request()
+                if comp is not None:
+                    probe_req[b] = comp
 
         # Phase 2: every agent's overlap probe.
         probe_val = self._batched_probes(probe_req)
@@ -172,13 +184,14 @@ class MultiAgentSlam:
         # Phase 3: decisions and graph mutations in agent order (keyframe
         # insertions queue their verifications in the shared LoopCloser).
         changed = []
-        for b in live:
-            loc = self.localizers[b]
-            loc.decide_composition(res_of[b], probe_req.get(b),
-                                   probe_val.get(b))
-            if loc.apply_composition(build=False):
-                changed.append(loc)
-            loc.last_input_T_world_robot = T_world_robot[b].copy()
+        with timing.span("pgslam.fleet.agents"):
+            for b in live:
+                loc = self.localizers[b]
+                loc.decide_composition(res_of[b], probe_req.get(b),
+                                       probe_val.get(b))
+                if loc.apply_composition(build=False):
+                    changed.append(loc)
+                loc.last_input_T_world_robot = T_world_robot[b].copy()
 
         # Phase 4: the changed local maps in one batched build.
         self._batched_set_map(changed)
@@ -210,6 +223,7 @@ class MultiAgentSlam:
         for loc in locs:
             loc.finish_apply()
 
+    @timing.spanned("pgslam.fleet.probes")
     def _batched_probes(self, probe_req) -> dict:
         """Overlap of each requesting agent's reading against its
         candidate map; the probe-cache misses are built in one batched
@@ -223,11 +237,12 @@ class MultiAgentSlam:
         miss = [i for i, w in enumerate(worlds) if w is None]
         if miss:
             comps = [probe_req[keys[i]] for i in miss]
-            built = probe_build_batched(
-                *stack_compositions(self.map_manager.get_graph(),
-                                    [c.as_list() for c in comps],
-                                    comps[0].capacity),
-                self.config.localizer.icp.reference_filters)
+            with timing.span("pgslam.localmap.build"):
+                built = probe_build_batched(
+                    *stack_compositions(self.map_manager.get_graph(),
+                                        [c.as_list() for c in comps],
+                                        comps[0].capacity),
+                    self.config.localizer.icp.reference_filters)
             for i, comp, world in zip(miss, comps, built):
                 worlds[i] = world
                 locs[i]._probe_cache_put(comp, world)
@@ -235,7 +250,8 @@ class MultiAgentSlam:
         T_world_robots = [loc._tensor(loc.T_world_robot) for loc in locs]
         ovs = probe_overlap_from_batched(readings, worlds, T_world_robots,
                                          self.config.localizer.icp)
-        ovs = ovs.cpu().numpy()
+        with timing.wait("probes.fetch"):
+            ovs = ovs.cpu().numpy()
         return {b: float(ovs[i]) for i, b in enumerate(keys)}
 
     # -- state access --------------------------------------------------------

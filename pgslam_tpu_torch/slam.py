@@ -18,6 +18,7 @@ from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .localizer import Localizer, LocalizerConfig
 from .loopcloser import LoopCloser, LoopCloserConfig
 from .optimizer import Optimizer, OptimizerConfig
+from .utils import timing
 
 
 def assemble_global_map(graph, max_points_per_keyframe: int = 0
@@ -111,14 +112,17 @@ class PoseGraphSlam:
 
     def add_data(self, timestamp, world_frame_id: str, T_world_robot,
                  T_robot_sensor, cloud: Union[Cloud, np.ndarray]) -> None:
-        if not isinstance(cloud, Cloud):
-            cloud = make_cloud(np.asarray(cloud),
-                               capacity=self.config.sensor_cloud_capacity,
-                               device=self.device)
-        self.localizer.add_new_data(timestamp, world_frame_id,
-                                    np.asarray(T_world_robot, np.float32),
-                                    np.asarray(T_robot_sensor, np.float32),
-                                    cloud)
+        with timing.span("pgslam.slam.step", step=True):
+            timing.count("steps")
+            timing.count("scans")
+            if not isinstance(cloud, Cloud):
+                cloud = make_cloud(np.asarray(cloud),
+                                   capacity=self.config.sensor_cloud_capacity,
+                                   device=self.device)
+            self.localizer.add_new_data(
+                timestamp, world_frame_id,
+                np.asarray(T_world_robot, np.float32),
+                np.asarray(T_robot_sensor, np.float32), cloud)
 
     AddData = add_data
 

@@ -1,9 +1,10 @@
 """Observability: event counters shared by the pipeline's components
 (counterpart of ``pgslam_tpu.utils.timing.counters``), summed over every
-component in the process, and the stage timer and trace of
-:mod:`.timing`. Counter keys in use: ``loopcloser/accepted``,
-``loopcloser/rejected`` and ``loopcloser/rejected_duplicate`` (each
-``LoopCloser`` also keeps its own counts).
+component in the process, and the tracer of :mod:`.timing` (spans, wait
+sites and counters recorded while a torch profiler records). Counter
+keys in use: ``loopcloser/accepted``, ``loopcloser/rejected`` and
+``loopcloser/rejected_duplicate`` (each ``LoopCloser`` also keeps its
+own counts).
 """
 
 from __future__ import annotations
@@ -12,5 +13,3 @@ from collections import defaultdict
 from typing import Dict
 
 counters: Dict[str, float] = defaultdict(float)
-
-from .timing import StageTimer, profile_trace  # noqa: E402,F401
