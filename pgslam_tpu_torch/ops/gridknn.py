@@ -102,11 +102,24 @@ def build_grid_index(points: torch.Tensor, mask: torch.Tensor, *,
                      overflow_count=(used & (rank >= bucket_cap)).sum())
 
 
+_OFFSETS_ON = {}
+
+
+def _offsets(device) -> torch.Tensor:
+    """The 27 neighbour offsets on ``device``, uploaded once per device
+    (an upload from pageable memory waits for the device)."""
+    t = _OFFSETS_ON.get(device)
+    if t is None:
+        t = _OFFSETS_ON[device] = torch.tensor(_OFFSETS, dtype=torch.int32,
+                                               device=device)
+    return t
+
+
 def grid_knn(query: torch.Tensor, query_mask: torch.Tensor,
              index: GridIndex, *, k: int = 1) -> Matches:
     """k-NN through the index: squared distances (+inf without a
     candidate within ``cell_size``) and reference ids."""
-    offsets = torch.tensor(_OFFSETS, dtype=torch.int32, device=query.device)
+    offsets = _offsets(query.device)
     cell = torch.floor(query / index.cell_size).to(torch.int32)
     h = cell_hash(cell[:, None, :] + offsets[None], index.table_size)
     nq = query.shape[0]

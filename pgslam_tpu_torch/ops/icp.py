@@ -1,10 +1,14 @@
 """The ICP loop. Counterpart of :mod:`pgslam_tpu.ops.icp`: match ->
 outlier-weigh -> minimize -> check, with the iteration cap, the smoothed
 differential checker, an optional coarse stage, optional Anderson
-acceleration, the bound checker and a NaN guard. The iterate loop runs on
-the host (one device sync per iteration for the convergence test);
-matching goes through K1, or the voxel-hash grid (``ops/gridknn.py``)
-under ``matcher="grid"``.
+acceleration, the bound checker and a NaN guard. Matching goes through
+K1, or the voxel-hash grid (``ops/gridknn.py``) under ``matcher="grid"``.
+
+One loop, run two ways with the same bits: on the CPU (and for
+point-to-point on the card) the host decides, one read of the
+convergence test an iteration and an early exit (``_icp_loop``); on the
+card point-to-plane runs each stage to its cap with the test decided on
+the device, as replays of captured CUDA graphs (``ops/icp_graph.py``).
 """
 
 from __future__ import annotations
@@ -213,17 +217,45 @@ def _match_and_weigh(points, mask, reference, cfg, index=None):
     return matches, O.compute_weights(cfg.outlier, matches, mask)
 
 
-def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig, index):
-    """One match -> weigh -> minimize step: (delta @ T, delta)."""
-    pts = se3.apply(T, pts_in.points)
-    matches, weights = _match_and_weigh(pts, pts_in.mask, reference, cfg,
-                                        index)
+def _minimize(pts, mask, reference: Cloud, matches: Matches, T,
+              cfg: ICPConfig):
+    """Weigh -> minimize from the matches of ``pts`` (the reading at T):
+    (delta @ T, delta)."""
+    weights = O.compute_weights(cfg.outlier, matches, mask)
     elems = build_error_elements(pts, reference, matches, weights, cfg)
     if cfg.error == "point_to_plane":
         delta = M.point_to_plane(elems)
     else:
         delta = M.point_to_point(elems)
     return delta @ T, delta
+
+
+def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig, index):
+    """One match -> weigh -> minimize step: (delta @ T, delta)."""
+    pts = se3.apply(T, pts_in.points)
+    matches = match_clouds(pts, pts_in.mask, reference, cfg, index)
+    return _minimize(pts, pts_in.mask, reference, matches, T, cfg)
+
+
+def _anderson(T, T_plain, X, GX, T0, Tinv0, eye, filled):
+    """One Anderson update (:class:`_Anderson`) on the window ``X``,
+    ``GX`` of the stage entered at ``T0``; ``filled`` (a bool, or a 0-d
+    bool tensor) says the window has filled. Returns (T, X, GX)."""
+    x_k = se3.log(T @ Tinv0)
+    g_k = se3.log(T_plain @ Tinv0)
+    X = torch.cat([x_k[None], X[:-1]])
+    GX = torch.cat([g_k[None], GX[:-1]])
+    Fr = GX - X
+    dF = Fr[0] - Fr[1:]
+    dG = GX[0] - GX[1:]
+    # solve_ex: an exactly singular window (the zero-filled warm-up)
+    # gives non-finite gamma, which the safeguard below rejects, as
+    # the reference's LU solve does.
+    gamma = torch.linalg.solve_ex(dF @ dF.T + 1e-10 * eye, dF @ Fr[0])[0]
+    x_acc = g_k - gamma @ dG
+    plain_sz = torch.linalg.norm(g_k - x_k)
+    ok = (torch.linalg.norm(x_acc - g_k) <= 2.0 * plain_sz + 1e-9) & filled
+    return se3.exp(torch.where(ok, x_acc, g_k)) @ T0, X, GX
 
 
 class _Anderson:
@@ -242,23 +274,10 @@ class _Anderson:
         self.eye = torch.eye(m - 1, dtype=T0.dtype, device=T0.device)
 
     def __call__(self, T, T_plain, it: int):
-        x_k = se3.log(T @ self.Tinv0)
-        g_k = se3.log(T_plain @ self.Tinv0)
-        self.X = torch.cat([x_k[None], self.X[:-1]])
-        self.GX = torch.cat([g_k[None], self.GX[:-1]])
-        Fr = self.GX - self.X
-        dF = Fr[0] - Fr[1:]
-        dG = self.GX[0] - self.GX[1:]
-        # solve_ex: an exactly singular window (the zero-filled warm-up)
-        # gives non-finite gamma, which the safeguard below rejects, as
-        # the reference's LU solve does.
-        gamma = torch.linalg.solve_ex(dF @ dF.T + 1e-10 * self.eye,
-                                      dF @ Fr[0])[0]
-        x_acc = g_k - gamma @ dG
-        plain_sz = torch.linalg.norm(g_k - x_k)
-        ok = (torch.linalg.norm(x_acc - g_k) <= 2.0 * plain_sz + 1e-9) \
-            & (it + 1 >= self.m)
-        return se3.exp(torch.where(ok, x_acc, g_k)) @ self.T0
+        T_new, self.X, self.GX = _anderson(T, T_plain, self.X, self.GX,
+                                           self.T0, self.Tinv0, self.eye,
+                                           it + 1 >= self.m)
+        return T_new
 
 
 def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
@@ -311,7 +330,24 @@ def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
     """The full ICP loop on pre-filtered clouds; ``index`` is the
     reference's grid index for ``matcher="grid"``. It computes in fp32
     (K1's on the card), or in fp64 where the reading is fp64 (the plain
-    matcher on the CPU)."""
+    matcher on the CPU). Where :func:`.icp_graph.graph_route` takes the
+    inputs (point-to-plane on the card), the loop runs as CUDA graph
+    replays with the same bits; elsewhere the host decides each
+    iteration."""
+    if reading.points.is_cuda:
+        from . import icp_graph
+        if icp_graph.graph_route(reading, reference, T_init, cfg):
+            return icp_graph.register(reading, reference, T_init, cfg,
+                                      index)
+    return icp_core_host(reading, reference, T_init, cfg, index)
+
+
+def icp_core_host(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
+                  cfg: ICPConfig, index: Optional[GridIndex] = None
+                  ) -> ICPResult:
+    """:func:`icp_core` with the host deciding each iteration, on any
+    device."""
+    timing.count("icp.eager.registrations")
     T_start = T_init.to(torch.float64 if reading.points.dtype
                         == torch.float64 else torch.float32)
     T0 = T_start

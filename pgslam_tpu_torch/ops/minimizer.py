@@ -10,7 +10,6 @@ from typing import Optional
 import torch
 
 from .. import se3
-from ..utils import timing
 
 # Below this weighted support a rigid fit is garbage: the step becomes
 # the identity and the overlap statistic reports the failure.
@@ -71,9 +70,10 @@ def point_to_plane(elems: ErrorElements) -> torch.Tensor:
     """One linearized point-to-plane solve; returns the 4x4 delta."""
     A, b, _ = p2plane_system(elems)
     A = A + 1e-6 * torch.eye(6, dtype=A.dtype, device=A.device)
-    # linalg.solve checks its factorization on the host.
-    with timing.wait("minimizer.solve"):
-        x = torch.linalg.solve(A, b)
+    # solve_ex: linalg.solve checks its factorization on the host. A
+    # failed solve gives a non-finite step, which the bound check's NaN
+    # guard rejects.
+    x = torch.linalg.solve_ex(A, b)[0]
     return _degenerate_guard(se3.exp(x), elems.weights)
 
 
@@ -108,7 +108,6 @@ def covariance(elems: ErrorElements, error: str) -> torch.Tensor:
         ssr = (w * (diff * diff).sum(-1)).sum()
         n_res = 3.0 * wsum
     dof = torch.clamp(n_res - 6.0, min=1.0)
-    with timing.wait("minimizer.inv"):
-        inv = torch.linalg.inv(A + 1e-9 * eye6)
+    inv = torch.linalg.inv_ex(A + 1e-9 * eye6)[0]
     cov = (ssr / dof) * inv
     return cov + 1e-12 * eye6

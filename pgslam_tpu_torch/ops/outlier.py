@@ -10,7 +10,6 @@ from typing import Tuple
 
 import torch
 
-from ..utils import timing
 from .knn import Matches
 
 
@@ -60,10 +59,10 @@ OutlierChain = Tuple
 def kth_keep(ratio: float, n_valid: torch.Tensor,
              dtype=torch.float32) -> torch.Tensor:
     """``ceil(ratio * n_valid)`` in ``dtype`` (the distances' dtype; fp32
-    on the main path), as the JAX package computes it."""
-    with timing.wait("outlier.upload"):
-        r = torch.tensor(ratio, dtype=dtype, device=n_valid.device)
-    return torch.ceil(r * n_valid.to(dtype))
+    on the main path), as the JAX package computes it. The ratio is a
+    scalar operand, rounded to ``dtype`` as a constant of that dtype is,
+    so nothing is uploaded."""
+    return torch.ceil(n_valid.to(dtype) * ratio)
 
 
 def _sorted_valid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -72,15 +71,19 @@ def _sorted_valid(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                       ).values
 
 
+def _entry(s: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``s[index]`` for a 0-d device index, gathered on the device
+    (indexing with a 0-d tensor reads it on the host)."""
+    return s.index_select(0, index.reshape(1)).reshape(())
+
+
 def trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
                       ratio: float) -> torch.Tensor:
     """Exact value of the ``ceil(ratio * n_valid)``-th smallest valid
     distance (the first one when no distance is valid)."""
     s = _sorted_valid(d2, valid)
     kth = kth_keep(ratio, valid.sum(), d2.dtype).to(torch.int64) - 1
-    # A 0-d index tensor is read on the host (``.item()``).
-    with timing.wait("outlier.threshold"):
-        return s[torch.clamp(kth, 0, s.shape[0] - 1)]
+    return _entry(s, torch.clamp(kth, 0, s.shape[0] - 1))
 
 
 def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -89,8 +92,7 @@ def median_threshold(d2: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     s = _sorted_valid(d2, valid)
     n_valid = torch.clamp(valid.sum(), min=1).to(d2.dtype)
     idx = (0.5 * n_valid).to(torch.int64)
-    with timing.wait("outlier.threshold"):
-        return s[torch.clamp(idx, 0, s.shape[0] - 1)]
+    return _entry(s, torch.clamp(idx, 0, s.shape[0] - 1))
 
 
 def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
@@ -107,8 +109,7 @@ def var_trimmed_threshold(d2: torch.Tensor, valid: torch.Tensor,
     psi = e / torch.clamp(r, min=1e-9) ** cfg.lam
     in_band = (r >= cfg.min_ratio) & (r <= cfg.max_ratio)
     psi = torch.where(in_band, psi, float("inf"))
-    with timing.wait("outlier.threshold"):
-        return s[torch.argmin(psi)]
+    return _entry(s, torch.argmin(psi))
 
 
 def compute_weights(chain: OutlierChain, matches: Matches,
@@ -135,9 +136,9 @@ def compute_weights(chain: OutlierChain, matches: Matches,
                 continue
             cos = torch.abs((reading_normals[:, None, :]
                              * reference_normals).sum(-1))
-            with timing.wait("outlier.upload"):
-                max_angle = torch.tensor(cfg.max_angle, dtype=cos.dtype,
-                                         device=cos.device)
+            # Filled on the device: an upload would wait for it.
+            max_angle = torch.full((), cfg.max_angle, dtype=cos.dtype,
+                                   device=cos.device)
             keep = cos >= torch.cos(max_angle)
         else:
             raise TypeError(f"unknown outlier filter {type(cfg)}")

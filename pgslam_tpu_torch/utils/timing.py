@@ -21,7 +21,12 @@ until the next starts, and :func:`recording` returns it.
   pageable memory): per site the calls and the seconds blocked, into the
   recording and into every enclosing span. Sites count on every device.
 * :func:`count` adds to a counter of the recording (``steps``, ``scans``,
-  ``launch.k1`` ... ``launch.k4``, ``icp.iterations``).
+  ``launch.k1`` ... ``launch.k4``, ``icp.iterations``; ``icp_core``'s
+  route: ``icp.graph.registrations``, the registrations served by CUDA
+  graph replays, ``icp.eager.registrations``, those on the host-decided
+  loop, and ``icp.graph.captures``, the graphs captured). On the graph
+  route ``icp.iterations`` counts every iteration the device ran, to
+  each stage's cap, the frozen ones after convergence included.
 
 The loop closer's outcomes stay in :data:`pgslam_tpu_torch.utils.counters`,
 summed over the whole process.

@@ -1012,3 +1012,178 @@ def test_resident_optimizer_equals_classic(cuda):
     assert k3_res == k3_cls == 3
     for a, b in zip(res, cls):
         np.testing.assert_array_equal(a, b)
+
+
+# -- icp_core as CUDA graph replays (ops/icp_graph.py) ----------------------
+
+def _velodyne_cell(n_scans, seed):
+    """The velodyne64 cell's configuration (built) and a session of its
+    corridor mix cut to ``n_scans`` scans."""
+    import copy
+    import os
+    from slambench import run as R
+    from slambench.core import slamconfig, traffic
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    bench = R.load_json(os.path.join(root, "BENCHMARK.json"))
+    _, _, cfg, mix = R.resolve(bench, "velodyne64.corridor", root)
+    mix = copy.deepcopy(mix)
+    mix["sequence"]["n_scans"] = mix["steps"] = n_scans
+    return slamconfig.build(cfg), traffic.make_session(mix, 1, seed)
+
+
+def _velodyne_front(cuda, n_scans=6):
+    """The cell's front-end config, its first scan's map on the card,
+    and the next scans as (prepared reading, T0 from odometry) pairs:
+    2,048 vs 8,192 points, point-to-plane, coarse_div 8."""
+    from pgslam_tpu_torch.ops.icp import ICPEngine
+    config, session = _velodyne_cell(n_scans, 2900000017)
+    engine = ICPEngine(config.localizer.icp)
+    engine.set_map(make_cloud(session.scans[0], device=cuda))
+    pairs = []
+    for i in range(1, n_scans):
+        rel = np.linalg.inv(session.odom[0, 0].astype(np.float64)) \
+            @ session.odom[i, 0]
+        pairs.append((engine.prepare_reading(
+            make_cloud(session.scans[i], device=cuda)),
+            torch.tensor(rel, dtype=torch.float32, device=cuda)))
+    return config.localizer.icp, engine, pairs
+
+
+def test_icp_graph_route_equals_host_loop_at_velodyne_shapes(cuda):
+    """Point-to-plane at 2,048 vs 8,192 with a coarse stage: the graph
+    route gives the host-decided loop's result, every field bit for bit,
+    scan after scan (the graphs captured at the first)."""
+    from pgslam_tpu_torch.ops import icp_graph
+    from pgslam_tpu_torch.ops.icp import icp_core, icp_core_host
+    cfg, engine, pairs = _velodyne_front(cuda)
+    assert cfg.error == "point_to_plane" and cfg.coarse_div == 8
+    ref = engine.reference
+    assert ref.points.shape[0] == 8192
+    for reading, T0 in pairs:
+        assert reading.points.shape[0] == 2048
+        assert icp_graph.graph_route(reading, ref, T0, cfg)
+        got = icp_core(reading, ref, T0, cfg)
+        want = icp_core_host(reading, ref, T0, cfg)
+        for name, v in vars(want).items():
+            assert torch.equal(getattr(got, name), v), name
+    assert icp_graph.registration(pairs[0][0], ref, cfg).graphs is not None
+
+
+def test_icp_graph_second_slam_object_captures_nothing(cuda):
+    """The graphs are the process's: a second SLAM object at the same
+    shapes replays them, and the recording counts its registrations as
+    graph ones, with no convergence read on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    from pgslam_tpu_torch import PoseGraphSlam
+    from pgslam_tpu_torch.ops import icp_graph
+    from pgslam_tpu_torch.utils import timing
+    config, session = _velodyne_cell(5, 2900000023)
+    T_rs = np.eye(4, dtype=np.float32)
+
+    def feed():
+        slam = PoseGraphSlam(config, device=cuda)
+        for i in range(5):
+            slam.add_data(i, "world", session.odom[i, 0], T_rs,
+                          session.scans[i])
+        torch.cuda.synchronize()
+
+    feed()
+    cached = len(icp_graph._CACHE)
+    with profile(activities=[ProfilerActivity.CPU]):
+        feed()
+    rec = timing.recording()
+    assert len(icp_graph._CACHE) == cached
+    assert rec.counters.get("icp.graph.captures", 0) == 0
+    assert rec.counters["icp.graph.registrations"] == 4
+    assert rec.counters.get("icp.eager.registrations", 0) == 0
+    assert "icp.converged" not in rec.sites
+
+
+def test_icp_graph_result_keeps_its_values_after_the_next_call(cuda):
+    """A result does not alias the graphs' buffers: the next
+    registration of the shape leaves it as it was."""
+    from pgslam_tpu_torch.ops.icp import icp_core
+    cfg, engine, pairs = _velodyne_front(cuda, n_scans=3)
+    first = icp_core(pairs[0][0], engine.reference, pairs[0][1], cfg)
+    kept = {k: v.clone() for k, v in vars(first).items()}
+    second = icp_core(pairs[1][0], engine.reference, pairs[1][1], cfg)
+    torch.cuda.synchronize()
+    assert not torch.equal(second.T, first.T)
+    for name, v in kept.items():
+        assert torch.equal(getattr(first, name), v), name
+
+
+def test_icp_graph_registrations_from_threads_keep_their_results(cuda):
+    """Eight threads register at one shape at once, with a short switch
+    interval: each result is the one a single thread gets (a shape's
+    buffers serve one registration at a time)."""
+    import sys
+    import threading
+    from pgslam_tpu_torch.ops.icp import icp_core
+    cfg, engine, pairs = _velodyne_front(cuda, n_scans=5)
+    ref = engine.reference
+    want = [icp_core(r, ref, T0, cfg).T for r, T0 in pairs]
+    got, errors = [], []
+
+    def work(t):
+        try:
+            for j in range(6):
+                i = (t + j) % len(pairs)
+                got.append((i, icp_core(pairs[i][0], ref, pairs[i][1],
+                                        cfg).T))
+        except Exception as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert len(got) == 48
+    for i, T in got:
+        assert torch.equal(T, want[i]), i
+
+
+@pytest.mark.parametrize("matcher,k,m,coarse", [
+    ("pallas", 1, 0, 0), ("pallas", 3, 0, 4), ("grid", 1, 0, 0),
+    ("grid", 3, 3, 4), ("pallas", 1, 3, 4)])
+def test_icp_graph_route_takes_every_point_to_plane_config(cuda, matcher,
+                                                           k, m, coarse):
+    """k > 1, Anderson acceleration and the grid matcher ride the graph
+    route too, with the host-decided loop's bits; point-to-point keeps
+    the host loop."""
+    import dataclasses
+    from pgslam_tpu_torch.ops import icp_graph
+    from pgslam_tpu_torch.ops.icp import (ICPEngine, icp_core,
+                                          icp_core_host)
+    from pgslam_tpu_torch.utils import timing
+    from torch.profiler import ProfilerActivity, profile
+    rds, rfs = _box_problems(cuda, 2)
+    cfg = ICPConfig(error="point_to_plane", matcher=matcher, knn=k,
+                    anderson_m=m, coarse_div=coarse, coarse_iterations=6,
+                    max_iterations=20,
+                    outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)))
+    T0 = se3.exp(torch.tensor([0.03, -0.02, 0.01, 0.01, 0.0, -0.01],
+                              device=cuda))
+    for rd, rf in zip(rds, rfs):
+        engine = ICPEngine(cfg)
+        engine.set_map(rf)
+        ref = engine.reference
+        assert icp_graph.graph_route(rd, ref, T0, cfg)
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = icp_core(rd, ref, T0, cfg, engine.index)
+        assert timing.recording().counters["icp.graph.registrations"] == 1
+        want = icp_core_host(rd, ref, T0, cfg, engine.index)
+        for name, v in vars(want).items():
+            assert torch.equal(getattr(got, name), v), name
+    p2p = dataclasses.replace(cfg, error="point_to_point")
+    assert not icp_graph.graph_route(rd, ref, T0, p2p)

@@ -238,7 +238,9 @@ def _fake():
     rec = timing.Recording()
     rec.counters.update({"steps": 4, "scans": 64, "launch.k1": 30,
                          "launch.k2": 6, "launch.k3": 4, "launch.k4": 0,
-                         "icp.iterations": 50})
+                         "icp.iterations": 50,
+                         "icp.graph.registrations": 6,
+                         "icp.eager.registrations": 2})
     spans = {"pgslam.fleet.step": (4, 0.100, 0.020),
              "pgslam.slam.step": (0, 0.0, 0.0),
              "pgslam.frontend.icp": (8, 0.032, 0.004),
@@ -264,7 +266,8 @@ READINGS = {"host_syncs_per_step": 60 / 4,
             "localmap_build_ms_per_step": 8.0 / 4,
             "fleet_prepare_ms_per_step": 12.0 / 4,
             "fleet_agents_ms_per_step": 20.0 / 4,
-            "probes_ms_per_step": 28.0 / 4}
+            "probes_ms_per_step": 28.0 / 4,
+            "icp_graph_share": 6 / 8}
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))
@@ -365,3 +368,10 @@ def test_wait_sites_are_every_sync_torch_reports(cell):
     seen = sum(v["count"] for k, v in rec.sites.items() if k not in UNSEEN)
     assert not outside, f"syncs outside any wait site: {sorted(set(outside))}"
     assert inside[0] == seen, {k: v["count"] for k, v in rec.sites.items()}
+    # The outlier thresholds read nothing on the host, and the front
+    # end's ICP runs as graph replays: no host read inside its loop.
+    assert not {"outlier.upload", "outlier.threshold"} & set(rec.sites)
+    if n == 1:
+        assert rec.counters["icp.graph.registrations"] == steps
+        assert not {"icp.converged", "icp.upload", "minimizer.solve",
+                    "minimizer.inv"} & set(rec.sites)
