@@ -27,9 +27,10 @@ map moves them. The numbers compared, each the widest over its sample:
   registrations gone wrong move its median. Where a compared one is over
   its limit, ``reg_widest`` shows where the widest gap lies. The reference runs the
   ICP semantics of the route the program takes: the classic loop, or
-  with the configuration's ``check.route`` at ``"k2"`` those of the
-  fused kernel (``reference/k2.py``, a batch at a time), for the
-  registrations and the verifications alike.
+  at ``"k2"`` those of the fused kernel (``reference/k2.py``, a batch at
+  a time). The configuration's ``check.route`` names it for the
+  registrations and the verifications alike (a string), or for each
+  (``{"front": ..., "verify": ...}``, :func:`routes`).
 * ``closure_gap_m``: the loop closer. Every step of sampled sessions:
   the reference's own candidate search on the graph the program searched,
   its verification ICP, its acceptance; the same gap for a closure both
@@ -58,11 +59,14 @@ from .reference import geometry as G
 from .reference import graph as RG
 from .reference import icp as RI
 from .reference import pgo as RP
+from .record import judges_closures
 from .slamconfig import icp_section
 
 DECISION_M = 1.0
 SAMPLE_SALT = 0x5A17
 BATCH = 16
+ROUTES = ("classic", "k2")
+SECTIONS = ("front", "verify")
 
 
 @contextlib.contextmanager
@@ -88,6 +92,20 @@ def pose_gap(A: np.ndarray, B: np.ndarray, reach: float) -> float:
                  + reach * np.arctan2(s, c))
 
 
+def routes(check: dict) -> Dict[str, str]:
+    """The reference's ICP route for each section, ``front`` (the
+    localizer's registrations) and ``verify`` (the loop closer's): the
+    check's ``route``, a string for both or an object with one for each,
+    ``"classic"`` where it is absent."""
+    route = check.get("route", "classic")
+    if isinstance(route, str):
+        route = {"front": route, "verify": route}
+    if set(route) != set(SECTIONS) or not set(route.values()) <= set(ROUTES):
+        raise ValueError(f"check.route {route!r}: one of {ROUTES} for "
+                         f"each of {SECTIONS}")
+    return route
+
+
 class Reference:
     """The reference's view of one run: the configuration's ICP
     sections, the keyframe clouds from the rendered scans, and cached
@@ -96,11 +114,11 @@ class Reference:
     def __init__(self, cfg: dict, session, device):
         self.cfg, self.session, self.device = cfg, session, device
         slam = cfg["slam"]
-        route = cfg["check"].get("route", "classic")
+        route = routes(cfg["check"])
         self.front = dict(icp_section(cfg, slam["localizer"]["icp"]),
-                          route=route)
+                          route=route["front"])
         self.verify = dict(icp_section(cfg, slam["loop_closer"]["icp"]),
-                           route=route)
+                           route=route["verify"])
         self.lc = slam["loop_closer"]
         self.kf_cap = slam["localizer"]["keyframe_cloud_capacity"]
         self.reach = session.max_range
@@ -255,10 +273,11 @@ def choose(records, seed: int, cfg: dict):
 
 
 def closure_readings(ref: Reference, rec, program_T) -> Dict:
-    """Widest closure gap over a session's steps, and the knife edges
-    left out. ``program_T(verification, v)`` gives the program's
-    accepted closure into ``v`` as ``(ref_v, T)`` or None."""
-    worst, knife, compared = 0.0, 0, 0
+    """Widest closure gap over a session's steps, the knife edges left
+    out, the verifications compared and the program's closures.
+    ``program_T(verification, v)`` gives the program's accepted closure
+    into ``v`` as ``(ref_v, T)`` or None."""
+    worst, knife, compared, accepted_prog, flips = 0.0, 0, 0, 0, []
     for ver in rec.verifications:
         g = ver.graph
         accepted = set()
@@ -269,12 +288,14 @@ def closure_readings(ref: Reference, rec, program_T) -> Dict:
                            ref.verifications(rec, g, found)))
         for v, comp, edge in cands:
             prog = program_T(ver, v)
+            accepted_prog += prog is not None
             if comp is None:
                 if prog is not None:
                     if edge:
                         knife += 1
                     else:
                         worst = max(worst, DECISION_M)
+                        flips.append(_flip(ver, v, None, None))
                 continue
             res = results[v]
             ref_v = comp[-1]
@@ -295,8 +316,24 @@ def closure_readings(ref: Reference, rec, program_T) -> Dict:
                     knife += 1
                 else:
                     worst = max(worst, DECISION_M)
+                    flips.append(_flip(ver, v, comp, res, ok))
     return {"closure_gap_m": worst, "closure_knife_edges": knife,
-            "closures_compared": compared}
+            "closures_compared": compared, "closures_accepted": accepted_prog,
+            "closure_flips": flips}
+
+
+def _flip(ver, v, comp, res, accepted=False) -> Dict:
+    """A closure decision the reference does not share, outside a knife
+    edge: the step, the keyframe, the reference's candidate and
+    verification, and the program's where its driver read it."""
+    out = {"step": ver.step, "vertex": v, "program": ver.program}
+    if comp is not None:
+        out["reference"] = {"ref_vertex": comp[-1], "accepted": accepted,
+                            "overlap": res.overlap,
+                            "iterations": res.iterations,
+                            "converged": res.converged,
+                            "residual": res.residual}
+    return out
 
 
 def program_closures(rec):
@@ -373,9 +410,9 @@ def readings(cfg: dict, session, records, seed: int, device,
             "reg_gap_m", "reg_gap_agent_m", "reg_settle_agent_m")
             if k in limits):
         out["reg_widest"] = widest_look(ref, *picked[int(np.argmax(gaps))])
-    if "closure_gap_m" not in cfg["check"]["limits"]:
+    if not judges_closures(cfg):
         return out
-    cg, knife, compared, pg, pm = 0.0, 0, 0, 0.0, 0.0
+    cg, knife, compared, closed, pg, pm = 0.0, 0, 0, 0, 0.0, 0.0
     with matmul_precision(False):
         for rec in sessions:
             if control:
@@ -388,12 +425,17 @@ def readings(cfg: dict, session, records, seed: int, device,
             cg = max(cg, c["closure_gap_m"])
             knife += c["closure_knife_edges"]
             compared += c["closures_compared"]
+            closed += c["closures_accepted"]
+            if not control and c["closure_flips"]:
+                out.setdefault("closure_flips", []).extend(
+                    c["closure_flips"][:8])
             sg, sm, look = pgo_reading(ref, rec, poses_of)
             if sg >= pg and not control:
                 out["pgo_worst"] = look
             pg, pm = max(pg, sg), max(pm, sm)
     out.update(closure_gap_m=cg, closure_knife_edges=knife,
-               closures_compared=compared, pgo_gap_sigma=pg, pgo_step_m=pm)
+               closures_compared=compared, closures_accepted=closed,
+               pgo_gap_sigma=pg, pgo_step_m=pm)
     return out
 
 

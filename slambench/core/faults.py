@@ -10,7 +10,12 @@ entry (``single``: the localizer's ``icp_core``; ``fleet``: the fleet's
 * ``unchanged``: the starting transforms (a step that leaves its state);
 * ``half_batch``: the starting transforms in the batch's second half;
 * ``one_agent``: the starting transform of one agent of the batch;
-* ``altered``: moved ``ALTER_M`` along x.
+* ``altered``: moved ``ALTER_M`` along x;
+
+and ``closure_altered`` breaks the loop closer's verifications where
+they are produced (every registration route of
+``pgslam_tpu_torch/loopcloser.py``): each closure's transform moved
+``ALTER_M`` along x, for any driver.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import dataclasses
 
 ALTER_M = 0.05
 KINDS = ("unchanged", "half_batch", "one_agent", "altered")
+CLOSURE_ROUTES = ("register_one", "icp_core", "batched_register")
 
 
 def registration_fault(kind: str, agent: int = 1):
@@ -48,14 +54,22 @@ def registration_fault(kind: str, agent: int = 1):
 
 def plant(entry: str, kind: str):
     """Plant ``kind`` under the driver ``entry``; returns the undo."""
-    if entry == "single":
+    if kind == "closure_altered":
+        from pgslam_tpu_torch import loopcloser as mod
+        names, kind = CLOSURE_ROUTES, "altered"
+    elif entry == "single":
         from pgslam_tpu_torch import localizer as mod
-        name = "icp_core"
+        names = ("icp_core",)
     elif entry == "fleet":
         from pgslam_tpu_torch.parallel import multi_agent as mod
-        name = "batched_register"
+        names = ("batched_register",)
     else:
         raise ValueError(f"no fault for the driver {entry!r}")
-    orig = getattr(mod, name)
-    setattr(mod, name, registration_fault(kind)(orig))
-    return lambda: setattr(mod, name, orig)
+    orig = {name: getattr(mod, name) for name in names}
+    for name, fn in orig.items():
+        setattr(mod, name, registration_fault(kind)(fn))
+
+    def undo():
+        for name, fn in orig.items():
+            setattr(mod, name, fn)
+    return undo

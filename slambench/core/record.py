@@ -5,10 +5,11 @@ The drivers read the program's public state between and around its
 calls, never its inputs to a kernel: per registration the local map's
 composition and the graph poses of its keyframes, the relative pose and
 the odometry it started from, and the registration it returned; per
-step of a fleet the graph the loop closer searched (copied when its
-verification starts) and the edges and poses the step left; per session
-which step and agent each keyframe came from. Each copy is a few small
-host arrays.
+step of a fleet, and per keyframe of one robot whose check judges its
+closures (:func:`judges_closures`), the graph the loop closer searched
+(copied when its verification starts) and the edges and poses the step
+left; per session which step and agent each keyframe came from. Each
+copy is a few small host arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +18,15 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+
+CLOSURE_LIMITS = ("closure_gap_m", "pgo_gap_sigma")
+
+
+def judges_closures(cfg: dict) -> bool:
+    """Whether the configuration's check judges the loop closer and the
+    back end, so that the drivers record each step's verification."""
+    return any(k in cfg["check"]["limits"] for k in CLOSURE_LIMITS)
 
 
 @dataclasses.dataclass
@@ -32,13 +42,14 @@ class Registration:
 
 @dataclasses.dataclass
 class Verification:
-    """One fleet step's loop-closure stage and optimization."""
+    """One step's loop-closure stage and optimization."""
     step: int
     n_before: int                # vertices before the step
     graph: Dict[str, np.ndarray]  # the graph when verification started
     e_after: int = 0             # edges after the step
     poses_after: Optional[np.ndarray] = None   # poses after an optimize
     lm_stats: Optional[dict] = None            # the optimizer's own stats
+    program: Optional[dict] = None             # one robot's verification
 
 
 @dataclasses.dataclass
@@ -59,6 +70,26 @@ def graph_snapshot(g) -> Dict[str, np.ndarray]:
             "edge_to": g.edge_to[:e].copy(),
             "edge_weight": g.edge_weight[:e].copy(),
             "edge_type": g.edge_type[:e].copy()}
+
+
+def close_verification(ver: Verification, g, optimizer) -> None:
+    """After the step: the edges, and where it added any the optimized
+    poses of the vertices the loop closer searched and the optimizer's
+    stats."""
+    ver.e_after = g.n_edges
+    if ver.e_after > ver.graph["e"]:
+        ver.poses_after = g.optimized_poses[:ver.graph["n"]].copy()
+        ver.lm_stats = dict(optimizer.last_stats or {})
+
+
+def verification_outcome(v: int, ref_v: int, res) -> dict:
+    """What one verification of keyframe ``v`` against the candidate map
+    of ``ref_v`` returned."""
+    return {"vertex": int(v), "ref_vertex": int(ref_v),
+            "overlap": float(res.overlap),
+            "iterations": int(res.iterations),
+            "converged": bool(res.converged),
+            "max_iter_reached": bool(res.max_iter_reached)}
 
 
 def final_edges(g) -> Dict[str, np.ndarray]:

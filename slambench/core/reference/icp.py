@@ -20,6 +20,7 @@ fused kernel (``k2.py``), which the fleet's batched paths run.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -38,6 +39,7 @@ class Result:
     diverged: bool
     overlap: float
     residual: float
+    cov: Optional[torch.Tensor] = None   # K2's point-to-plane covariance
 
 
 def weights(d2, query_mask, outlier):
@@ -167,9 +169,12 @@ def finish(reading, ref, T, T_start, it, converged, cfg) -> Result:
     T, diverged = bound_check(T, T_start, cfg)
     pts = G.apply(T, reading.points)
     q, n, w = _match(pts, reading.mask, ref, cfg)
-    overlap = (K2.overlap(T, reading, ref, cfg) if cfg.get("route") == "k2"
-               else float(w.sum() / torch.clamp(reading.count().to(w.dtype),
-                                                min=1.0)))
+    cov = None
+    if cfg.get("route") == "k2":
+        overlap, cov = K2.final(T, reading, ref, cfg)
+    else:
+        overlap = float(w.sum() / torch.clamp(reading.count().to(w.dtype),
+                                              min=1.0))
     if cfg["error"] == "point_to_plane":
         r = (n * (pts - q)).sum(-1)
         residual = float((w * r * r).sum())
@@ -179,7 +184,7 @@ def finish(reading, ref, T, T_start, it, converged, cfg) -> Result:
     return Result(T=T, iterations=it, converged=converged,
                   max_iter_reached=it >= cfg["max_iterations"]
                   and not converged, diverged=diverged, overlap=overlap,
-                  residual=residual)
+                  residual=residual, cov=cov)
 
 
 def prepare_reference(cloud: G.Cloud, cfg) -> G.Cloud:

@@ -85,10 +85,7 @@ class Driver:
             rec.regs.append(reg)
         v = self._verif
         if v is not None:
-            v.e_after = g.n_edges
-            if v.e_after > v.graph["e"]:
-                v.poses_after = g.optimized_poses[:v.graph["n"]].copy()
-                v.lm_stats = dict(fleet.optimizer.last_stats or {})
+            R.close_verification(v, g, fleet.optimizer)
             rec.verifications.append(v)
         R.note_new_vertices(rec, g, i, fleet.localizers)
         self.record_s += time.perf_counter() - t

@@ -121,7 +121,8 @@ def run_cell(bench, workload, seed, seconds, trace, devices=None,
         torch.cuda.set_device(devices[0])
 
     t_render = time.perf_counter()
-    session = traffic.make_session(mix, int(cfg["agents"]), seed)
+    session = traffic.make_session(mix, int(cfg["agents"]), seed,
+                                   device=devices[0])
     slam_config = slamconfig.build(cfg)
     t_warm = time.perf_counter()
     Driver = load_part(root, "drivers", cfg["entry"]).Driver

@@ -41,5 +41,5 @@ def test_fault_is_caught(checkout, cell, kind):
                                   "fleet16.apart"])
 def test_sound_run_is_correct(checkout, cell):
     tmp, bench = checkout
-    res, lines, _ = run_tiny(tmp, bench, cell, seed=11, seconds=1.0)
+    res, lines, _ = run_tiny(tmp, bench, cell, seed=11, seconds=3.0)
     assert res["correct"] is True, lines
