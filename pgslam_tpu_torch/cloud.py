@@ -6,7 +6,7 @@ of named ``[N, D]`` descriptor channels. Counterpart of
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -93,6 +93,60 @@ def make_cloud(points, mask=None, descriptors=None,
                  descriptors={k: upload(v) for k, v in desc.items()})
 
 
+def upload(arrays, device) -> List[torch.Tensor]:
+    """float32 and int32 numpy arrays to ``device`` in one copy: packed
+    into one fresh host buffer (pinned for a card, so the copy does not
+    hold the host; the caching host allocator keeps the block until the
+    copy is done), sent, and split into views of their shapes."""
+    device = torch.device(device)
+    sizes = [int(np.prod(a.shape)) for a in arrays]
+    host = torch.empty(sum(sizes), dtype=torch.int32,
+                       pin_memory=device.type == "cuda")
+    buf, off = host.numpy(), 0
+    for a, n in zip(arrays, sizes):
+        if a.dtype not in (np.float32, np.int32):
+            raise TypeError(f"upload takes float32 and int32, not {a.dtype}")
+        buf[off:off + n] = a.reshape(-1).view(np.int32)
+        off += n
+    dev = host.to(device, non_blocking=True)
+    out, off = [], 0
+    for a, n in zip(arrays, sizes):
+        view = dev[off:off + n].view(a.shape)
+        out.append(view.view(torch.float32) if a.dtype == np.float32
+                   else view)
+        off += n
+    return out
+
+
+def make_cloud_batch(points: Sequence, capacity: int, device=None,
+                     riders: Sequence[np.ndarray] = ()):
+    """One padded ``[B, capacity, 3]`` float32 cloud from B ``[N_b, 3]``
+    arrays, each scan with :func:`make_cloud`'s bits (int16 is millimetre
+    fixed point, dequantized as there). The points, their counts and the
+    float32 ``riders`` (a step's transforms) go to ``device`` in one
+    :func:`upload`; the masks are made there from the counts. Returns
+    (cloud, the riders on ``device``)."""
+    B = len(points)
+    pts_host = np.empty((B, capacity, 3), np.float32)
+    counts = np.empty(B, np.int32)
+    for b, p in enumerate(points):
+        p = np.asarray(p)
+        if p.ndim != 2 or p.shape[1] != 3:
+            raise ValueError(f"points must be [N, 3], got {p.shape}")
+        n = p.shape[0]
+        if n > capacity:
+            raise ValueError(f"{n} points exceed capacity {capacity}")
+        if p.dtype == np.int16:
+            p = p.astype(np.float32) * np.float32(1.0 / MM_SCALE)
+        pts_host[b, :n] = p.astype(np.float32, copy=False)
+        pts_host[b, n:] = 0.0
+        counts[b] = n
+    riders = [np.ascontiguousarray(r, np.float32) for r in riders]
+    pts, n_dev, *on_dev = upload([pts_host, counts] + riders, device)
+    mask = torch.arange(capacity, device=pts.device) < n_dev[:, None]
+    return Cloud(points=pts, mask=mask), on_dev
+
+
 def empty_cloud(capacity: int, descriptor_spec: Optional[Dict[str, int]] = None,
                 device=None) -> Cloud:
     """An all-padding cloud; ``descriptor_spec`` maps channel names to
@@ -142,7 +196,8 @@ def dequantize_cloud(cloud: Cloud) -> Cloud:
 
 
 def transform_cloud(T: torch.Tensor, cloud: Cloud) -> Cloud:
-    """Rigid transform of the points; direction descriptors rotate."""
+    """Rigid transform of the points; direction descriptors rotate. A
+    ``[B, N]`` batch takes ``T [B, 4, 4]``, one transform a cloud."""
     desc = {}
     for name, value in cloud.descriptors.items():
         if name in ROTATED_DESCRIPTORS and value.shape[-1] == 3:
@@ -160,3 +215,12 @@ def stack_clouds(clouds: Sequence[Cloud]) -> Cloud:
                  descriptors={k: torch.stack([c.descriptors[k]
                                               for c in clouds])
                               for k in keys})
+
+
+def unbind_cloud(cloud: Cloud) -> List[Cloud]:
+    """The clouds of a ``[B, N]`` batch, each a view of it."""
+    desc = {k: v.unbind(0) for k, v in cloud.descriptors.items()}
+    return [Cloud(points=p, mask=m,
+                  descriptors={k: v[b] for k, v in desc.items()})
+            for b, (p, m) in enumerate(zip(cloud.points.unbind(0),
+                                           cloud.mask.unbind(0)))]

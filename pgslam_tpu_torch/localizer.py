@@ -28,12 +28,13 @@ import collections
 import dataclasses
 import logging
 import os
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .cloud import Cloud, dequantize_cloud, stack_clouds, transform_cloud
+from .cloud import (Cloud, dequantize_cloud, pad_cloud, stack_clouds,
+                    transform_cloud, unbind_cloud)
 from .devices import resolve_device
 from .graph.pose_graph import MapManager
 from .graph.shortest_path import dijkstra
@@ -117,16 +118,47 @@ def prepare_input(chain, capacity: int, cloud: Cloud,
     return transform_cloud(T_robot_sensor, F.compact(cloud, capacity))
 
 
-def prepare_input_batched(chain, capacity: int, clouds, T_robot_sensors,
-                          reading_chain=(), seeds=None):
-    """A fleet's input preparation (``_prepare_input_batched``): per agent
-    :func:`prepare_input` under its seed (its scan count; 0 when
-    ``seeds`` is None), then the reading filter chain. Returns the
-    prepared clouds and readings, one each per agent."""
-    seeds = [0] * len(clouds) if seeds is None else seeds
-    prepped = [prepare_input(chain, capacity, c, T, seed)
-               for c, T, seed in zip(clouds, T_robot_sensors, seeds)]
-    return prepped, [F.apply_chain(reading_chain, c) for c in prepped]
+def _own(cloud: Cloud) -> Cloud:
+    """A keyframe's copy of its cloud: a batch's prepared cloud is a view
+    of the whole batch, which the graph would otherwise keep alive."""
+    return cloud.map(torch.clone)
+
+
+class PreparedBatch(NamedTuple):
+    """A batch's input preparation: each scan's prepared cloud and
+    reading, and the readings as one ``[B, ...]`` cloud when they are
+    views of one (else None)."""
+    clouds: List[Cloud]
+    readings: List[Cloud]
+    reading_batch: Optional[Cloud]
+
+
+def prepare_input_batched(chain, capacity: int, raw: Cloud,
+                          T_robot_sensors: torch.Tensor, reading_chain=(),
+                          seeds=None) -> PreparedBatch:
+    """A batch's input preparation (``_prepare_input_batched``) with each
+    scan's :func:`prepare_input` under its seed (its scan count; 0 when
+    ``seeds`` is None), then the reading filter chain. ``raw`` is the
+    scans as one ``[B, N]`` cloud, ``T_robot_sensors`` ``[B, 4, 4]``.
+
+    Dequantization, compaction and transform run once over the batch. A
+    non-empty input chain runs on each scan's slice under its own seed,
+    its outputs padded to the largest capacity (padding compacts away).
+    An empty reading chain makes the readings the prepared clouds."""
+    seeds = [0] * raw.points.shape[0] if seeds is None else seeds
+    batch = dequantize_cloud(raw)
+    if chain:
+        outs = [F.apply_chain(chain, c, seed)
+                for c, seed in zip(unbind_cloud(batch), seeds)]
+        top = max(c.capacity for c in outs)
+        batch = stack_clouds([pad_cloud(c, top) for c in outs])
+    prepared = transform_cloud(T_robot_sensors,
+                               F.compact_batched(batch, capacity))
+    prepped = unbind_cloud(prepared)
+    if reading_chain:
+        readings = [F.apply_chain(reading_chain, c) for c in prepped]
+        return PreparedBatch(prepped, readings, None)
+    return PreparedBatch(prepped, prepped, prepared)
 
 
 def probe_build_batched(points, masks, descs, Ts, slot_valid, desc_keys,
@@ -163,13 +195,15 @@ def prepare_register_stream(chain, capacity: int, cfg: ICPConfig, clouds,
     one local map (one K2 launch on the card; the kernel takes contiguous
     tensors, so the copies are materialized). Returns the prepared
     clouds, the readings and the packed results ``[B, 59]``."""
-    prepped, readings = prepare_input_batched(chain, capacity, clouds,
-                                              T_robot_sensors,
-                                              cfg.reading_filters, seeds)
-    B = len(prepped)
+    prep = prepare_input_batched(chain, capacity, stack_clouds(clouds),
+                                 torch.stack(list(T_robot_sensors)),
+                                 cfg.reading_filters, seeds)
+    B = len(prep.clouds)
     refs = reference.map(lambda a: a[None].expand(B, *a.shape).contiguous())
-    result = batched_register(stack_clouds(readings), refs, T0s, cfg)
-    return prepped, readings, pack_result(result)
+    readings = (prep.reading_batch if prep.reading_batch is not None
+                else stack_clouds(prep.readings))
+    result = batched_register(readings, refs, T0s, cfg)
+    return prep.clouds, prep.readings, pack_result(result)
 
 
 @dataclasses.dataclass
@@ -532,7 +566,7 @@ class Localizer:
         return result
 
     def process_first_cloud(self, cloud: Cloud, T_world_robot) -> None:
-        v = self.mm.add_first_keyframe(cloud, T_world_robot)
+        v = self.mm.add_first_keyframe(_own(cloud), T_world_robot)
         self.next_composition.clear()
         self.next_composition.push_back(v)
         self.local_map.update_to_new_composition(self.mm.get_graph(),
@@ -588,7 +622,8 @@ class Localizer:
             # closer and possibly the optimizer before returning.
             v = self.mm.add_new_keyframe(
                 self.local_map.reference_vertex(), self.T_world_robot,
-                self.T_refkf_robot, np.asarray(result.cov), self.input_cloud)
+                self.T_refkf_robot, np.asarray(result.cov),
+                _own(self.input_cloud))
             self.next_composition.push_back(v)
             log.info("[Localizer] next composition = %s",
                      self.next_composition)

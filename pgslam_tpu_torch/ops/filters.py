@@ -214,6 +214,29 @@ def compact(cloud: Cloud, capacity=None) -> Cloud:
                  descriptors={k: put(v) for k, v in cloud.descriptors.items()})
 
 
+def compact_batched(cloud: Cloud, capacity=None) -> Cloud:
+    """:func:`compact` of each cloud of a ``[B, N]`` batch: one cumsum
+    along the point axis, then one scatter per tensor over the batch (the
+    mask's scatter is the compacted mask)."""
+    B, n = cloud.mask.shape
+    cap = n if capacity is None else min(capacity, n)
+    rank1 = torch.cumsum(cloud.mask, -1)            # 1-based, int64
+    # Row b's survivors go to b * cap + rank; the rest to the spare row
+    # ``B * cap``.
+    base = torch.arange(-1, B * cap - 1, cap, device=cloud.device)
+    dest = torch.where(cloud.mask & (rank1 <= cap), rank1 + base[:, None],
+                       B * cap).reshape(-1)
+
+    def put(a):
+        tail = tuple(a.shape[2:])
+        out = a.new_zeros((B * cap + 1,) + tail)
+        out[dest] = a.reshape((B * n,) + tail)
+        return out[:B * cap].view((B, cap) + tail)
+
+    return Cloud(points=put(cloud.points), mask=put(cloud.mask),
+                 descriptors={k: put(v) for k, v in cloud.descriptors.items()})
+
+
 def compute_normals(cloud: Cloud, *, knn_k: int = 8,
                     orient: bool = True) -> Cloud:
     """Per-point normal = the smallest-eigenvalue eigenvector of the

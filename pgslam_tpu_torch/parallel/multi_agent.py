@@ -25,7 +25,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..cloud import Cloud, make_cloud, stack_clouds
+from ..cloud import (Cloud, dequantize_cloud, make_cloud, make_cloud_batch,
+                     pad_cloud, stack_clouds, upload)
 from ..devices import resolve_device
 from ..graph.pose_graph import MapManager
 from ..localizer import (Localizer, prepare_input_batched,
@@ -135,35 +136,37 @@ class MultiAgentSlam:
         self._batched_set_map([loc for loc in resync
                                if loc.resync_from_graph(build=False)])
 
-        # Input preparation and reading filters for the whole fleet.
+        # Input preparation and reading filters for the whole fleet, as
+        # one batch: one upload of the step's scans and transforms.
         with timing.span("pgslam.fleet.prepare"):
-            raw = [c if isinstance(c, Cloud) else make_cloud(
-                np.asarray(c), capacity=self.config.sensor_cloud_capacity,
-                device=self.device) for c in clouds]
+            raw, T_rs_dev = self._upload_scans(clouds, T_rs)
             lcfg = self.config.localizer
-            with timing.wait("fleet.upload"):
-                T_rs_dev = torch.as_tensor(T_rs, device=self.device)
-            prepped, readings_all = prepare_input_batched(
+            prep = prepare_input_batched(
                 lcfg.input_filters, lcfg.keyframe_cloud_capacity, raw,
                 T_rs_dev, reading_chain=lcfg.icp.reading_filters,
                 seeds=[loc.count for loc in self.localizers])
-            preps = [loc.prepare_scan(T_world_robot[b], T_rs[b], raw[b],
-                                      prepared=prepped[b],
-                                      reading=readings_all[b])
+            timing.count("fleet.prepare.per_agent" if lcfg.input_filters
+                         else "fleet.prepare.batched")
+            preps = [loc.prepare_scan(T_world_robot[b], T_rs[b], None,
+                                      prepared=prep.clouds[b],
+                                      reading=prep.readings[b])
                      for b, loc in enumerate(self.localizers)]
             live = [b for b, p in enumerate(preps) if p is not None]
             if not live:
                 return
 
             # One registration batch at the fleet's size: the live agents
-            # padded with copies of the first.
+            # padded with copies of the first. With every agent live the
+            # readings are the prepared batch itself.
             pad_ix = live + [live[0]] * (B - len(live))
             references = stack_clouds(
                 [self.localizers[b].icp_engine.reference for b in pad_ix])
-            readings = stack_clouds([preps[b][0] for b in pad_ix])
-            with timing.wait("fleet.upload"):
-                T0s = torch.as_tensor(np.stack([preps[b][1] for b in pad_ix]),
-                                      device=self.device)
+            if len(live) == B and prep.reading_batch is not None:
+                readings = prep.reading_batch
+            else:
+                readings = stack_clouds([preps[b][0] for b in pad_ix])
+            (T0s,) = upload([np.stack([preps[b][1] for b in pad_ix])],
+                            self.device)
         # One host copy of the fleet's results.
         with timing.span("pgslam.fleet.register"):
             results = to_host(self._register(readings, references, T0s))
@@ -200,6 +203,24 @@ class MultiAgentSlam:
         # optimization over every accepted closure.
         self.loop_closer.process_pending_batched()
         self.optimizer.process_pending()
+
+    def _upload_scans(self, clouds, T_rs: np.ndarray):
+        """The step's scans as one ``[B, sensor capacity]`` cloud and the
+        sensor transforms on the fleet's device: arrays in one upload
+        (:func:`make_cloud_batch`); clouds already on the device are
+        dequantized, padded to the largest capacity (padding compacts
+        away) and stacked."""
+        cap = self.config.sensor_cloud_capacity
+        if not any(isinstance(c, Cloud) for c in clouds):
+            raw, (T_rs_dev,) = make_cloud_batch(clouds, cap, self.device,
+                                                riders=[T_rs])
+            return raw, T_rs_dev
+        cs = [dequantize_cloud(c) if isinstance(c, Cloud) else make_cloud(
+            np.asarray(c), capacity=cap, device=self.device) for c in clouds]
+        top = max(c.capacity for c in cs)
+        raw = stack_clouds([pad_cloud(c, top) for c in cs])
+        (T_rs_dev,) = upload([T_rs], self.device)
+        return raw, T_rs_dev
 
     def _register(self, readings: Cloud, references: Cloud, T0s):
         """The fleet's registration batch: over the mesh where there is

@@ -24,7 +24,11 @@ until the next starts, and :func:`recording` returns it.
   ``launch.k1`` ... ``launch.k4``, ``icp.iterations``; ``icp_core``'s
   route: ``icp.graph.registrations``, the registrations served by CUDA
   graph replays, ``icp.eager.registrations``, those on the host-decided
-  loop, and ``icp.graph.captures``, the graphs captured). On the graph
+  loop, and ``icp.graph.captures``, the graphs captured; the fleet's
+  input preparation, one a step on the route taken:
+  ``fleet.prepare.batched``, the whole preparation once over the step's
+  batch, and ``fleet.prepare.per_agent``, an input filter chain run per
+  agent before the batch's compaction and transform). On the graph
   route ``icp.iterations`` counts every iteration the device ran, to
   each stage's cap, the frozen ones after convergence included.
 

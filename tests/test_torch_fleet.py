@@ -360,3 +360,172 @@ def test_mesh_raises():
         MultiAgentSlam(FP.fleet_config(), n_agents=2,
                        device="cpu").add_data_batch(
             0, "world", np.stack([np.eye(4)] * 2), np.eye(4), [None])
+
+
+# -- the fleet's input preparation as one batch -----------------------------
+
+def _random_T(rng):
+    from pgslam_tpu_torch import se3 as tse3
+    T = tse3.exp(torch.as_tensor(rng.normal(0, 0.5, 6), dtype=torch.float32))
+    return T.numpy()
+
+
+def _ragged_chain(monkeypatch):
+    """Make the input chain's outputs differ in capacity between agents
+    (no filter of the port does that): the first agent's output gains a
+    padding row, which its compaction drops again."""
+    from pgslam_tpu_torch.cloud import pad_cloud
+    from pgslam_tpu_torch.ops import filters as TF
+    apply, calls = TF.apply_chain, []
+
+    def ragged(chain, cloud, seed=0):
+        out = apply(chain, cloud, seed)
+        calls.append(seed)
+        return pad_cloud(out, out.capacity + 1) if len(calls) == 1 else out
+    monkeypatch.setattr(TF, "apply_chain", ragged)
+
+
+# (input kind, points per agent, sensor capacity, keyframe capacity, input
+# chain, reading chain, ragged chain outputs). 200 of 256 at B = 2 is a
+# shape where the CPU's batched matmul rounds the rotation's three-term
+# sums otherwise than one matmul per cloud.
+PREP_CASES = {
+    "float32": ("float32", [512, 768, 700], 768, 512, (), (), False),
+    "float64": ("float64", [512, 768, 700], 768, 512, (), (), False),
+    "int16": ("int16", [512, 768, 700], 768, 512, (), (), False),
+    "bmm_shape": ("float32", [256, 180], 256, 200, (), (), False),
+    "cloud": ("cloud", [512, 768, 700], 768, 512, (), (), False),
+    "cloud_int16": ("cloud_int16", [512, 768, 700], 768, 512, (), (), False),
+    "mixed": ("mixed", [512, 768, 700], 768, 512, (), (), False),
+    "mixed_int16": ("mixed_int16", [512, 768, 700], 768, 512, (), (), False),
+    "input_chain": ("float32", [512, 768, 700], 768, 512,
+                    ("sample", "maxdist", "obsdir"), (), False),
+    "reading_chain": ("int16", [512, 768, 700], 768, 512, (),
+                      ("sample", "mindist", "obsdir"), False),
+    "ragged_chain": ("float32", [512, 768, 700], 768, 512, ("sample",), (),
+                     True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREP_CASES))
+def test_batched_preparation_has_each_agents_bits(monkeypatch, case):
+    """The fleet's input preparation (one upload, then dequantization,
+    compaction and transform once over the batch) against each agent's
+    ``prepare_input`` and reading chain on its own cloud: points, mask and
+    every descriptor bit for bit, at n below and at the sensor capacity,
+    under per-agent seeds, from arrays, from clouds already made and from
+    both at once. At the batched matmul's other rounding (``bmm_shape``)
+    the points differ from the per-cloud ones by at most the rounding of
+    the transform's sums; the mask is still bit for bit."""
+    from pgslam_tpu_torch.cloud import Cloud, dequantize_cloud
+    from pgslam_tpu_torch.localizer import prepare_input, prepare_input_batched
+    from pgslam_tpu_torch.ops import filters as TF
+    kind, ns, cap, kcap, chain, rchain, ragged = PREP_CASES[case]
+    named = {"sample": TF.RandomSampling(0.5), "maxdist": TF.MaxDist(2.5),
+             "mindist": TF.MinDist(0.3),
+             "obsdir": TF.ObservationDirection(x=0.5, y=-0.2, z=0.1)}
+    chain = tuple(named[c] for c in chain)
+    rchain = tuple(named[c] for c in rchain)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    B = len(ns)
+    fine = [rng.normal(0, 2.0, (n, 3)) for n in ns]
+    if kind.endswith("int16"):
+        host = [np.round(p * 1000).astype(np.int16) for p in fine]
+    else:
+        host = [p.astype(kind if kind.startswith("float") else np.float32)
+                for p in fine]
+    if kind == "cloud":
+        clouds = [tmake(p, capacity=cap, device="cpu") for p in host]
+    elif kind == "mixed":      # clouds of two capacities beside an array
+        clouds = [tmake(host[0], capacity=cap, device="cpu"), host[1],
+                  tmake(host[2], capacity=cap + 64, device="cpu")]
+    elif kind.startswith("cloud_int16") or kind == "mixed_int16":
+        def raw16(p):
+            pts = np.zeros((cap, 3), np.int16)
+            pts[:len(p)] = p
+            return Cloud(points=torch.from_numpy(pts),
+                         mask=torch.arange(cap) < len(p))
+        clouds = [raw16(p) for p in host]
+        if kind == "mixed_int16":  # an int16 cloud beside float32 input
+            clouds[1] = fine[1].astype(np.float32)
+            clouds[2] = tmake(fine[2].astype(np.float32), capacity=cap,
+                              device="cpu")
+    else:
+        clouds = host
+    Ts = np.stack([_random_T(rng) for _ in range(B)])
+    seeds = [3 + 5 * b for b in range(B)]
+    cfg = FP.fleet_config(sensor_cap=cap, kf_cap=kcap)
+    cfg = dataclasses.replace(cfg, localizer=dataclasses.replace(
+        cfg.localizer, input_filters=chain,
+        icp=dataclasses.replace(cfg.localizer.icp, reading_filters=rchain)))
+    fleet = MultiAgentSlam(cfg, n_agents=B, device="cpu")
+
+    # Each agent on its own: the cloud as make_cloud builds it, then
+    # prepare_input under its seed and the reading chain.
+    want, scale = [], []
+    for b in range(B):
+        c = clouds[b] if isinstance(clouds[b], Cloud) else tmake(
+            clouds[b], capacity=cap, device="cpu")
+        p = prepare_input(chain, kcap, c, torch.from_numpy(Ts[b]), seeds[b])
+        want.append((p, TF.apply_chain(rchain, p)))
+        # The size of the transform's terms: |R p| <= |p|_1, plus |t|_1.
+        scale.append(float(dequantize_cloud(c).points.abs().sum(-1).max()
+                           + np.abs(Ts[b][:3, 3]).sum()))
+    eps = torch.finfo(torch.float32).eps
+
+    def same(b, a, z):
+        if case != "bmm_shape":
+            return torch.equal(a, z)
+        return bool(((a - z).abs() <= 4 * eps * scale[b]).all())
+    if ragged:
+        _ragged_chain(monkeypatch)
+    raw, T_dev = fleet._upload_scans(clouds, Ts)
+    prep = prepare_input_batched(chain, kcap, raw, T_dev, rchain, seeds)
+    assert (prep.reading_batch is not None) == (not rchain)
+    for b, (p, r) in enumerate(want):
+        for w, got in ((p, prep.clouds[b]), (r, prep.readings[b])):
+            assert same(b, w.points, got.points), b
+            assert torch.equal(w.mask, got.mask), b
+            assert w.descriptors.keys() == got.descriptors.keys()
+            for k in w.descriptors:
+                assert same(b, w.descriptors[k], got.descriptors[k]), k
+    if prep.reading_batch is not None:
+        for b in range(B):
+            assert torch.equal(prep.reading_batch.points[b],
+                               prep.readings[b].points)
+
+
+def test_keyframes_do_not_alias_the_step_batch():
+    """Two agents for 10 steps on the card test's scene: every keyframe's
+    cloud is unchanged from its insertion to the end and holds no more
+    storage than its own tensors (not the batch of the step that made
+    it), and the tracer counts one route of the preparation a step (the
+    batched one: both chains are empty)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pgslam_tpu_torch.utils import timing
+    scans, odom, _ = _corridor_12()
+    fleet = MultiAgentSlam(FP.fleet_config(), n_agents=2, device="cpu")
+    graph = fleet.get_graph()
+    add_vertex = graph.add_vertex
+    inserted = []
+
+    def recorded(cloud, *a, **kw):
+        inserted.append(cloud.map(lambda t: t.clone()))
+        return add_vertex(cloud, *a, **kw)
+    graph.add_vertex = recorded
+    T_rs = np.eye(4, dtype=np.float32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for i in range(10):
+            fleet.add_data_batch(i, "world", np.stack([odom[i], odom[i + 1]]),
+                                 T_rs, [scans[i], scans[i + 1]])
+    rec = timing.recording()
+    assert rec.counters["steps"] == 10
+    assert rec.counters["fleet.prepare.batched"] == 10
+    assert rec.counters["fleet.prepare.per_agent"] == 0
+    assert len(inserted) == graph.n_vertices >= 3
+    for v, before in enumerate(inserted):
+        now = graph.clouds[v]
+        assert torch.equal(now.points, before.points), v
+        assert torch.equal(now.mask, before.mask), v
+        for t in (now.points, now.mask, *now.descriptors.values()):
+            assert t.untyped_storage().nbytes() == t.nbytes, v

@@ -406,6 +406,35 @@ def test_fleet_on_the_card(cuda):
     assert fleet.get_graph().n_vertices >= 3
 
 
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_fleet_batched_preparation_has_each_agents_bits(cuda, dtype):
+    """The fleet's input preparation at ``fleet16``'s shape on the card
+    (16 scans of 512 and 768 points, sensor capacity 768, keyframe
+    capacity 512; one pinned upload, then compaction and one batched
+    transform): each agent's points and mask bit for bit those of
+    ``make_cloud`` and ``prepare_input`` on its own cloud."""
+    from pgslam_tpu_torch.cloud import make_cloud_batch
+    from pgslam_tpu_torch.localizer import prepare_input, prepare_input_batched
+    rng = np.random.default_rng(22)
+    pts = [rng.normal(0, 5.0, (512 if b % 2 else 768, 3)) for b in range(16)]
+    pts = [np.round(p * 1000).astype(np.int16) if dtype == "int16"
+           else p.astype(np.float32) for p in pts]
+    Ts = np.stack([se3.exp(torch.as_tensor(rng.normal(0, 0.5, 6),
+                                           dtype=torch.float32)).numpy()
+                   for _ in range(16)])
+    raw, (T_dev,) = make_cloud_batch(pts, 768, cuda, riders=[Ts])
+    prep = prepare_input_batched((), 512, raw, T_dev)
+    assert prep.reading_batch is not None
+    for b in range(16):
+        one = make_cloud(pts[b], capacity=768, device=cuda)
+        assert torch.equal(raw.points[b], one.points)
+        assert torch.equal(raw.mask[b], one.mask)
+        want = prepare_input((), 512, one, torch.as_tensor(Ts[b],
+                                                           device=cuda))
+        assert torch.equal(prep.clouds[b].points, want.points), b
+        assert torch.equal(prep.clouds[b].mask, want.mask), b
+
+
 @pytest.mark.parametrize("tp", [2, 4, 8])
 @pytest.mark.parametrize("k", [1, 8])
 def test_merged_match_equals_k1_over_the_whole_reference(cuda, tp, k):

@@ -240,7 +240,9 @@ def _fake():
                          "launch.k2": 6, "launch.k3": 4, "launch.k4": 0,
                          "icp.iterations": 50,
                          "icp.graph.registrations": 6,
-                         "icp.eager.registrations": 2})
+                         "icp.eager.registrations": 2,
+                         "fleet.prepare.batched": 3,
+                         "fleet.prepare.per_agent": 1})
     spans = {"pgslam.fleet.step": (4, 0.100, 0.020),
              "pgslam.slam.step": (0, 0.0, 0.0),
              "pgslam.frontend.icp": (8, 0.032, 0.004),
@@ -267,7 +269,8 @@ READINGS = {"host_syncs_per_step": 60 / 4,
             "fleet_prepare_ms_per_step": 12.0 / 4,
             "fleet_agents_ms_per_step": 20.0 / 4,
             "probes_ms_per_step": 28.0 / 4,
-            "icp_graph_share": 6 / 8}
+            "icp_graph_share": 6 / 8,
+            "fleet_prepare_batched_share": 3 / 4}
 
 
 @pytest.mark.parametrize("name", sorted(READINGS))
@@ -302,7 +305,9 @@ def test_wait_sites_are_every_sync_torch_reports(cell):
     """A few steps of the cell's entry point at its configuration, under
     ``torch.cuda.set_sync_debug_mode("warn")``: torch's count of
     synchronizing calls equals the program's wait sites (less the event
-    waits torch does not see), and every one falls inside a wait."""
+    waits torch does not see), and every one falls inside a wait. A fleet
+    step's input preparation holds at most 4 sites and takes the batched
+    route."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the syncs counted are the card's")
     from slambench import run as R
@@ -330,11 +335,14 @@ def test_wait_sites_are_every_sync_torch_reports(cell):
     torch.cuda.synchronize()
     outside = []
     inside = [0]
+    in_prepare = [0]
     enter, leave = timing._Wait.__enter__, timing._Wait.__exit__
     depth = threading.local()
 
     def counted_enter(self):
         depth.n = getattr(depth, "n", 0) + 1
+        if any(s.name == "pgslam.fleet.prepare" for s in timing._stack()):
+            in_prepare[0] += 1
         return enter(self)
 
     def counted_exit(self, *exc):
@@ -371,6 +379,10 @@ def test_wait_sites_are_every_sync_torch_reports(cell):
     # The outlier thresholds read nothing on the host, and the front
     # end's ICP runs as graph replays: no host read inside its loop.
     assert not {"outlier.upload", "outlier.threshold"} & set(rec.sites)
+    if n > 1:
+        # The fleet's scans and transforms go up as one batch a step.
+        assert in_prepare[0] <= 4 * steps, in_prepare[0]
+        assert rec.counters["fleet.prepare.batched"] == steps
     if n == 1:
         assert rec.counters["icp.graph.registrations"] == steps
         assert not {"icp.converged", "icp.upload", "minimizer.solve",
