@@ -41,8 +41,7 @@ from .graph.shortest_path import dijkstra
 from .localmap import Composition, LocalMap, build_cloud, stack_compositions
 from .ops import filters as F
 from .ops.icp import (HostFetch, ICPConfig, ICPEngine, ICPResult,
-                      compute_overlap, fetch_async, icp_core, pack_result,
-                      unpack_result)
+                      compute_overlap, icp_core, pack_result, unpack_result)
 from .parallel.batched import batched_register, fused_ready, register_one
 from .utils import timing
 
@@ -402,7 +401,7 @@ class Localizer:
             ov = compute_overlap(reading, self._cached_probe_map(probe_comp),
                                  self._tensor(T_world_refkf) @ result.T,
                                  self.icp_engine.config)
-        return self._record(fetch_async(pack_result(result, ov)), None,
+        return self._record(HostFetch(pack_result(result, ov)), None,
                             cloud, reading, probe_comp, odom)
 
     def _record(self, fetch, row, cloud, reading, probe_comp,
@@ -494,7 +493,7 @@ class Localizer:
             [self._tensor(t) for _, t, _, _ in buf_p],
             self.icp_engine.reference, self._tensor(T0s),
             seeds=[n for _, _, _, n in buf_p])
-        fetch = fetch_async(packed)
+        fetch = HostFetch(packed)
         # The speculative neighbour probe is skipped in this mode.
         for j in range(n):
             self._inflight.append(self._record(fetch, j, clouds[j],

@@ -24,10 +24,9 @@ from .graph.pose_graph import LOOP_CONSTRAINT, MapManager
 from .graph.shortest_path import candidate_composition, dijkstra
 from .localmap import Composition, LocalMap, batch_rebuild
 from .ops import filters as F
-from .ops.icp import (ICPConfig, ICPResult, compute_residual,
-                      eps_dead_zone, eps_margin, fetch_async, host_entry,
-                      icp_core, pack_result, reference_chain, reference_index,
-                      to_host, unpack_result)
+from .ops.icp import (HostFetch, ICPConfig, ICPResult, compute_residual,
+                      eps_dead_zone, eps_margin, icp_core, pack_result,
+                      reference_chain, reference_index, unpack_result)
 from .parallel.batched import batched_register, register_one, use_fused
 from .utils import counters, timing
 
@@ -68,23 +67,28 @@ def verify(reading: Cloud, ref_cloud: Cloud, T0: torch.Tensor,
 
 
 def verify_batch(readings: Cloud, refs: Cloud, T0s: torch.Tensor,
-                 cfg: ICPConfig):
+                 cfg: ICPConfig) -> torch.Tensor:
     """The verification stage for a stacked batch (``_verify_batch``):
     both filter chains per entry, one batched registration (one K2 launch
     on the card when the config is eligible) and each entry's residual
-    computed fresh at its result. Returns (batched result, residuals)."""
+    computed fresh at its result. Returns the batch packed with each
+    entry's residual in its extra slot, ``[B, 59]`` (``pack_result``), on
+    the clouds' device."""
     B = readings.points.shape[0]
     rd = [F.apply_chain(cfg.reading_filters, readings.map(lambda a: a[b]))
           for b in range(B)]
     chain = reference_chain(cfg, refs)
     rf = [F.apply_chain(chain, refs.map(lambda a: a[b])) for b in range(B)]
     res = batched_register(stack_clouds(rd), stack_clouds(rf), T0s, cfg)
-    residuals = []
-    for b, (r, m) in enumerate(zip(rd, rf)):
-        residual = compute_residual(r, m, res.T[b], cfg)
-        with timing.wait("loopcloser.residual"):
-            residuals.append(float(residual))
-    return res, residuals
+    residuals = torch.stack([compute_residual(r, m, res.T[b], cfg)
+                             for b, (r, m) in enumerate(zip(rd, rf))])
+    return pack_result(res, residuals)
+
+
+def _residual(extra: Optional[float]) -> float:
+    """A verification's residual from its packed extra slot: NaN where the
+    slot held NaN, never None (which asks for a fresh residual)."""
+    return float("nan") if extra is None else extra
 
 
 class LoopCloser:
@@ -169,12 +173,11 @@ class LoopCloser:
         T0s += [T0s[0]] * (bucket - n)
         with timing.wait("loopcloser.upload"):
             T0s = torch.as_tensor(np.stack(T0s), device=refs.device)
-        res, residuals = verify_batch(stack_clouds(readings), refs, T0s,
-                                      self.config.icp)
+        vec = HostFetch(verify_batch(stack_clouds(readings), refs, T0s,
+                                     self.config.icp)).get()
         accepted_pairs = set()
-        res = to_host(res)
         for i, ((v, _), lm) in enumerate(zip(reqs, lms)):
-            result = host_entry(res, i)
+            result, residual = unpack_result(vec[i])
             self.input_vertex = v
             self.input_cloud = graph.clouds[v]
             self.input_T_world_kf = graph.optimized_poses[v].copy()
@@ -190,7 +193,7 @@ class LoopCloser:
                 self._count("rejected_duplicate")
                 log.info("[LoopCloser] Loop closure %d -> %d dropped: edge "
                          "already exists", ref_v, v)
-            elif self.check_icp_result(result, residual=residuals[i]):
+            elif self.check_icp_result(result, residual=_residual(residual)):
                 self._count("accepted")
                 accepted_pairs.add((ref_v, v))
                 log.info("[LoopCloser] Loop closure accepted: %d -> %d",
@@ -233,7 +236,7 @@ class LoopCloser:
         rec = {"vertex": input_vertex, "lm": self.candidate_local_map,
                "cloud": self.input_cloud,
                "T_world_kf": self.input_T_world_kf,
-               "fetch": fetch_async(packed)}
+               "fetch": HostFetch(packed)}
         # The record keeps the map; the next dispatch takes a fresh one
         # (deferred mode can hold several records).
         self.candidate_local_map = LocalMap(
@@ -250,8 +253,7 @@ class LoopCloser:
         self.last_result = result
         self.T_refkf_kf = np.asarray(result.T)
         self._accept_or_reject(rec["vertex"], rec["lm"], result,
-                               float("nan") if residual is None
-                               else residual)
+                               _residual(residual))
 
     def _accept_or_reject(self, input_vertex: int, lm, result,
                           residual) -> None:
@@ -388,6 +390,4 @@ class LoopCloser:
         with timing.wait("loopcloser.upload"):
             T = torch.as_tensor(np.asarray(self.T_refkf_kf, np.float32),
                                 device=ref.device)
-        residual = compute_residual(reading, ref, T, cfg)
-        with timing.wait("loopcloser.residual"):
-            return float(residual)
+        return float(HostFetch(compute_residual(reading, ref, T, cfg)).get())

@@ -4,11 +4,14 @@ differential checker, an optional coarse stage, optional Anderson
 acceleration, the bound checker and a NaN guard. Matching goes through
 K1, or the voxel-hash grid (``ops/gridknn.py``) under ``matcher="grid"``.
 
-One loop, run two ways with the same bits: on the CPU (and for
-point-to-point on the card) the host decides, one read of the
-convergence test an iteration and an early exit (``_icp_loop``); on the
-card point-to-plane runs each stage to its cap with the test decided on
-the device, as replays of captured CUDA graphs (``ops/icp_graph.py``).
+The loop itself is the segmented registration of ``ops/icp_graph.py``,
+run two ways with the same bits: on the card point-to-plane runs each
+stage to its cap as replays of captured CUDA graphs; everywhere else the
+segments run eagerly and the host leaves a stage once it has converged.
+This module holds the pieces both share (the minimization, the Anderson
+update, the bound check), :func:`icp_core`, which picks the way, and the
+one road of a result to the host: :func:`pack_result` on the device,
+:class:`HostFetch`, :func:`unpack_result` on the host.
 """
 
 from __future__ import annotations
@@ -93,28 +96,6 @@ class ICPResult:
     diverged: Optional[torch.Tensor] = None
 
 
-def to_host(result: ICPResult) -> ICPResult:
-    """One host copy of a result: numpy arrays for T and cov, numpy
-    scalars (or arrays, for a batch) for the rest."""
-    def get(x):
-        with timing.wait("icp.to_host"):
-            return x.detach().cpu().numpy()
-    return ICPResult(T=get(result.T), iterations=get(result.iterations),
-                     converged=get(result.converged),
-                     max_iter_reached=get(result.max_iter_reached),
-                     overlap=get(result.overlap),
-                     residual=get(result.residual), cov=get(result.cov),
-                     diverged=None if result.diverged is None
-                     else get(result.diverged))
-
-
-def host_entry(result: ICPResult, index) -> ICPResult:
-    """Entry ``index`` of a batched host result (:func:`to_host` of the
-    batch): one copy of the batch, indexed on the host."""
-    return ICPResult(**{name: None if v is None else v[index]
-                        for name, v in vars(result).items()})
-
-
 PACKED_WIDTH = 59
 
 
@@ -124,7 +105,7 @@ def pack_result(result: ICPResult, overlap=None) -> torch.Tensor:
     59]``: T (16), cov (36), iterations, converged, max_iter_reached,
     overlap, residual, diverged, then the extra scalar. NaN marks an
     absent ``diverged`` or extra slot. One vector is one device-to-host
-    copy (:func:`fetch_async`) instead of one per field."""
+    copy (:class:`HostFetch`) instead of one per field."""
     T = result.T
     lead = T.shape[:-2]
     col = lambda x: torch.as_tensor(x, device=T.device).to(
@@ -144,8 +125,8 @@ def pack_result(result: ICPResult, overlap=None) -> torch.Tensor:
 
 def unpack_result(vec) -> Tuple[ICPResult, Optional[float]]:
     """The host inverse of :func:`pack_result` for one entry: a result
-    with numpy leaves (as :func:`to_host` gives) and the extra scalar, or
-    None where its slot is NaN."""
+    with numpy leaves and the extra scalar, or None where its slot is
+    NaN."""
     vec = np.asarray(vec)
     div, extra = vec[57], vec[58]
     result = ICPResult(
@@ -183,11 +164,6 @@ class HostFetch:
                 self._event.synchronize()
                 self._event = self._source = None
         return self._host.numpy()
-
-
-def fetch_async(vec: torch.Tensor) -> HostFetch:
-    """Start the copy of ``vec`` to the host (:class:`HostFetch`)."""
-    return HostFetch(vec)
 
 
 def match_clouds(points, mask, reference: Cloud, cfg: ICPConfig,
@@ -230,17 +206,14 @@ def _minimize(pts, mask, reference: Cloud, matches: Matches, T,
     return delta @ T, delta
 
 
-def _icp_step(pts_in: Cloud, reference: Cloud, T, cfg: ICPConfig, index):
-    """One match -> weigh -> minimize step: (delta @ T, delta)."""
-    pts = se3.apply(T, pts_in.points)
-    matches = match_clouds(pts, pts_in.mask, reference, cfg, index)
-    return _minimize(pts, pts_in.mask, reference, matches, T, cfg)
-
-
 def _anderson(T, T_plain, X, GX, T0, Tinv0, eye, filled):
-    """One Anderson update (:class:`_Anderson`) on the window ``X``,
-    ``GX`` of the stage entered at ``T0``; ``filled`` (a bool, or a 0-d
-    bool tensor) says the window has filled. Returns (T, X, GX)."""
+    """One type-II Anderson update (``pgslam_tpu/ops/icp.py``
+    ``body_aa``) on the window ``X``, ``GX`` of the last ``m`` se3-log
+    twists taken relative to the stage entry ``T0``: ``x_k = log(T
+    T0^-1)``, ``g_k = log(T_plain T0^-1)``, the (m-1)x(m-1) system
+    regularized by 1e-10 I, and the extrapolation kept only when it lies
+    within twice the plain step of ``g_k`` and the window has filled
+    (``filled``, a bool or a 0-d bool tensor). Returns (T, X, GX)."""
     x_k = se3.log(T @ Tinv0)
     g_k = se3.log(T_plain @ Tinv0)
     X = torch.cat([x_k[None], X[:-1]])
@@ -256,60 +229,6 @@ def _anderson(T, T_plain, X, GX, T0, Tinv0, eye, filled):
     plain_sz = torch.linalg.norm(g_k - x_k)
     ok = (torch.linalg.norm(x_acc - g_k) <= 2.0 * plain_sz + 1e-9) & filled
     return se3.exp(torch.where(ok, x_acc, g_k)) @ T0, X, GX
-
-
-class _Anderson:
-    """Type-II Anderson acceleration on the window of the last ``m``
-    se3-log twists taken relative to the stage entry ``T0``
-    (``pgslam_tpu/ops/icp.py`` ``body_aa``): ``x_k = log(T T0^-1)``,
-    ``g_k = log(T_plain T0^-1)``, the (m-1)x(m-1) system regularized by
-    1e-10 I, and the extrapolation kept only when it lies within twice
-    the plain step of ``g_k`` and the window has filled."""
-
-    def __init__(self, T0, m: int):
-        self.T0, self.m = T0, m
-        self.Tinv0 = se3.inverse(T0)
-        self.X = torch.zeros((m, 6), dtype=T0.dtype, device=T0.device)
-        self.GX = torch.zeros_like(self.X)
-        self.eye = torch.eye(m - 1, dtype=T0.dtype, device=T0.device)
-
-    def __call__(self, T, T_plain, it: int):
-        T_new, self.X, self.GX = _anderson(T, T_plain, self.X, self.GX,
-                                           self.T0, self.Tinv0, self.eye,
-                                           it + 1 >= self.m)
-        return T_new
-
-
-def _icp_loop(reading: Cloud, reference: Cloud, T0, cfg: ICPConfig,
-              max_iterations: int, index):
-    L = max(1, cfg.smooth_length)
-    dts = torch.full((L,), float("inf"), dtype=T0.dtype, device=T0.device)
-    drs = dts.clone()
-    aa = (_Anderson(T0, cfg.anderson_m)
-          if cfg.anderson_m and cfg.anderson_m > 1 else None)
-    T, it, converged = T0, 0, False
-    while it < max_iterations and not converged:
-        T_plain, delta = _icp_step(reading, reference, T, cfg, index)
-        if aa is not None:
-            T_new = aa(T, T_plain, it)
-            delta = T_new @ se3.inverse(T)
-            T = T_new
-        else:
-            T = T_plain
-        dts = torch.cat([se3.translation_norm(delta)[None], dts[:-1]])
-        drs = torch.cat([se3.rotation_angle(delta)[None], drs[:-1]])
-        with timing.wait("icp.converged"):
-            converged = bool((dts.mean() < cfg.trans_eps)
-                             & (drs.mean() < cfg.rot_eps))
-        timing.count("icp.iterations")
-        it += 1
-    return T, it, converged
-
-
-def decimate(cloud: Cloud, div: int) -> Cloud:
-    """Strided decimation over scan order (contiguous copies, as the
-    kernels require)."""
-    return cloud.map(lambda a: a[::div].contiguous())
 
 
 def bound_check(T, T0, cfg: ICPConfig):
@@ -332,47 +251,12 @@ def icp_core(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
     (K1's on the card), or in fp64 where the reading is fp64 (the plain
     matcher on the CPU). Where :func:`.icp_graph.graph_route` takes the
     inputs (point-to-plane on the card), the loop runs as CUDA graph
-    replays with the same bits; elsewhere the host decides each
-    iteration."""
-    if reading.points.is_cuda:
-        from . import icp_graph
-        if icp_graph.graph_route(reading, reference, T_init, cfg):
-            return icp_graph.register(reading, reference, T_init, cfg,
-                                      index)
-    return icp_core_host(reading, reference, T_init, cfg, index)
-
-
-def icp_core_host(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
-                  cfg: ICPConfig, index: Optional[GridIndex] = None
-                  ) -> ICPResult:
-    """:func:`icp_core` with the host deciding each iteration, on any
-    device."""
-    timing.count("icp.eager.registrations")
-    T_start = T_init.to(torch.float64 if reading.points.dtype
-                        == torch.float64 else torch.float32)
-    T0 = T_start
-    if cfg.coarse_div and cfg.coarse_div > 1:
-        T0, _, _ = _icp_loop(decimate(reading, cfg.coarse_div), reference,
-                             T0, cfg, cfg.coarse_iterations, index)
-    T, iterations, converged = _icp_loop(reading, reference, T0, cfg,
-                                         cfg.max_iterations, index)
-    T, diverged = bound_check(T, T_start, cfg)
-    with timing.wait("icp.upload"):
-        converged = torch.tensor(converged, device=T.device)
-    converged = converged & ~diverged
-
-    pts = se3.apply(T, reading.points)
-    matches, weights = _match_and_weigh(pts, reading.mask, reference, cfg,
-                                        index)
-    elems = build_error_elements(pts, reference, matches, weights, cfg)
-    with timing.wait("icp.upload"):
-        iters = torch.tensor(iterations, dtype=torch.int32, device=T.device)
-    return ICPResult(
-        T=T, iterations=iters, converged=converged,
-        max_iter_reached=(iters >= cfg.max_iterations) & ~converged,
-        overlap=M.overlap(weights, reading.count()),
-        residual=M.residual_error(elems, cfg.error),
-        cov=M.covariance(elems, cfg.error), diverged=diverged)
+    replays; elsewhere eagerly, leaving each stage once it has converged
+    (:func:`.icp_graph.register_eager`). Both give the same bits."""
+    from . import icp_graph
+    if icp_graph.graph_route(reading, reference, T_init, cfg):
+        return icp_graph.register(reading, reference, T_init, cfg, index)
+    return icp_graph.register_eager(reading, reference, T_init, cfg, index)
 
 
 def compute_overlap(reading: Cloud, reference: Cloud, T: torch.Tensor,

@@ -1,18 +1,17 @@
-"""``icp_core`` with the decision to stop made on the device, and the CUDA
-graphs that replay it on the card.
+"""The ICP loop of ``icp.icp_core``, as segments over static buffers,
+run two ways with the same bits.
 
-The host-decided loop (``icp._icp_loop``) reads its convergence test on
-the host every iteration and leaves the loop early. Here each stage (the
-coarse one, then the full one) runs to its cap instead: an iteration
-starts with ``active = ~done``, an inactive one leaves T, the smoothed
-``dts`` / ``drs`` windows, Anderson's window and the iteration count as
-they were, and the same smoothed test sets ``done``. Active iterations
-are a prefix, so T, ``iterations`` and ``converged`` are the host loop's
-bit for bit, and so is every other field of the result.
+Each stage (the coarse one, then the full one) is a run of iterations:
+one starts with ``active = ~done``, an inactive one leaves T, the
+smoothed ``dts`` / ``drs`` windows, Anderson's window and the iteration
+count as they were, and the smoothed test sets ``done``. Active
+iterations are a prefix, so a stage run to its cap and a stage left as
+soon as ``done`` is set give the same T, ``iterations`` and
+``converged``, bit for bit, and so every other field of the result.
 
-A :class:`Registration` holds the state in static buffers of one shape
-and splits a registration into *segments* that read and write only
-those buffers, with a match between each two:
+A :class:`Registration` holds the state in buffers of one shape and
+splits a registration into *segments* that read and write only those
+buffers, with a match between each two:
 
 * ``start``: T from T_init, the first stage's entry (the windows reset,
   the reading at T, decimated for a coarse stage);
@@ -24,13 +23,23 @@ those buffers, with a match between each two:
 
 The match runs eagerly between segments, through ``icp.match_clouds``
 (K1's wrapper, so its launch counters and the benchmark's K1 tally see
-every launch, or the grid matcher), and is copied into static match
-buffers. On the card each segment is captured once as a CUDA graph and
-replayed (:func:`register`): nothing in the loop waits on the host.
-Graphs live in one cache of the process, keyed by device, config,
-reading and reference rows, dtype and whether the reference has
-normals, so a new SLAM object reuses them. Capture warms up on a stream
-of its own and synchronizes the device (wait site ``icp.capture``).
+every launch, or the grid matcher). The two ways:
+
+* :func:`register` (point-to-plane on the card, :func:`graph_route`):
+  the buffers are static, the matches are copied into them, and each
+  segment is captured once as a CUDA graph and replayed, every stage to
+  its cap; nothing in the loop waits on the host. Graphs live
+  in one cache of the process, keyed by device, config, reading and
+  reference rows, dtype and whether the reference has normals, so a new
+  SLAM object reuses them. Capture warms up on a stream of its own and
+  synchronizes the device (wait site ``icp.capture``).
+* :func:`register_eager` (everything else, on any device): the segments
+  of a :class:`Registration` made for the one run (not ``static``) run
+  as plain calls over the inputs themselves, and the host reads
+  ``done`` after each iteration (wait site ``icp.converged``) and leaves
+  the stage once it is set. Every iteration that runs is active, so a
+  segment binds what it computes where the graphs copy it, masked, into
+  their buffers; the matches are bound the same way.
 """
 
 from __future__ import annotations
@@ -53,8 +62,8 @@ def graph_route(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
                 cfg) -> bool:
     """Whether ``icp_core`` runs as graph replays: one fp32 registration
     on a CUDA device, point-to-plane against a reference with normals.
-    Point-to-point keeps the host-decided loop: its SVD reads an error
-    flag on the host, which no graph captures."""
+    Point-to-point runs eagerly: its SVD reads an error flag on the host,
+    which no graph captures."""
     p = reading.points
     return (p.device.type == "cuda" and p.dim() == 2
             and p.dtype == torch.float32
@@ -65,18 +74,20 @@ def graph_route(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
 
 
 class _Stage:
-    """A stage's reading (static), the reading at the current T, its
-    matches and its cap of iterations."""
+    """A stage's reading, the reading at the current T, its matches and
+    its cap of iterations (the first two static for the graphs)."""
 
-    def __init__(self, cloud: Cloud, cap: int, k: int):
+    def __init__(self, cloud: Cloud, cap: int, k: int, static: bool):
         self.cloud, self.cap = cloud, cap
-        n = cloud.points.shape[0]
-        self.pts = torch.empty_like(cloud.points)
-        self.matches = Matches(
-            dists2=torch.empty((n, k), dtype=cloud.points.dtype,
-                               device=cloud.points.device),
-            ids=torch.empty((n, k), dtype=torch.int32,
-                            device=cloud.points.device))
+        self.pts = self.matches = None
+        if static:
+            n = cloud.points.shape[0]
+            self.pts = torch.empty_like(cloud.points)
+            self.matches = Matches(
+                dists2=torch.empty((n, k), dtype=cloud.points.dtype,
+                                   device=cloud.points.device),
+                ids=torch.empty((n, k), dtype=torch.int32,
+                                device=cloud.points.device))
 
 
 def _empty_like_cloud(cloud: Cloud, rows=None) -> Cloud:
@@ -87,21 +98,23 @@ def _empty_like_cloud(cloud: Cloud, rows=None) -> Cloud:
 
 
 class Registration:
-    """The static buffers and segments of registrations shaped like
-    ``reading`` against ``reference`` under ``cfg``."""
+    """The buffers and segments of registrations shaped like ``reading``
+    against ``reference`` under ``cfg``.
 
-    def __init__(self, reading: Cloud, reference: Cloud, cfg):
-        self.cfg = cfg
+    ``static`` (for the graphs): every buffer is static, a segment writes
+    in place and an iteration after ``done`` leaves the state as it was.
+    Otherwise the registration of ``reading`` runs once, eagerly: the
+    inputs are its buffers, a segment binds what it writes, and the run
+    leaves a stage once it has converged, so every iteration that runs
+    is active and needs no mask."""
+
+    def __init__(self, reading: Cloud, reference: Cloud, cfg,
+                 static: bool = True):
+        self.cfg, self.static = cfg, static
         dev, dt = reading.points.device, reading.points.dtype
         full = lambda *shape, v, dtype=dt: torch.full(
             shape, v, dtype=dtype, device=dev)
-        self.reading = _empty_like_cloud(reading)
-        self.reference = _empty_like_cloud(reference)
-        if "normals" in reference.descriptors:
-            self.reference.descriptors["normals"] = torch.empty_like(
-                self.reference.points)
-        self.T_start = full(4, 4, v=0.0)
-        self.T = full(4, 4, v=0.0)
+        # The state each stage's entry resets in place.
         L = max(1, cfg.smooth_length)
         self.dts, self.drs = full(L, v=0.0), full(L, v=0.0)
         self.done = full(v=False, dtype=torch.bool)
@@ -110,23 +123,34 @@ class Registration:
         if self.aa:
             m = cfg.anderson_m
             self.X, self.GX = full(m, 6, v=0.0), full(m, 6, v=0.0)
-            self.T0, self.Tinv0 = full(4, 4, v=0.0), full(4, 4, v=0.0)
             self.eye = torch.eye(m - 1, dtype=dt, device=dev)
-        self.stages = []
-        div = cfg.coarse_div
+        div, coarse = cfg.coarse_div, []
         if div and div > 1:
             n = len(range(0, reading.points.shape[0], div))
-            self.stages.append(_Stage(_empty_like_cloud(reading, n),
-                                      cfg.coarse_iterations, cfg.knn))
+            coarse.append(_empty_like_cloud(reading, n) if static else
+                          reading.map(lambda a: a[::div].contiguous()))
+        if static:
+            self.reading = _empty_like_cloud(reading)
+            self.reference = _empty_like_cloud(reference)
+            if "normals" in reference.descriptors:
+                self.reference.descriptors["normals"] = torch.empty_like(
+                    self.reference.points)
+            self.T_start, self.T = full(4, 4, v=0.0), full(4, 4, v=0.0)
+            if self.aa:
+                self.T0, self.Tinv0 = full(4, 4, v=0.0), full(4, 4, v=0.0)
+            # The result's other fields (its iterations are the state's).
+            self.T_out = full(4, 4, v=0.0)
+            self.diverged = full(v=False, dtype=torch.bool)
+            self.converged = full(v=False, dtype=torch.bool)
+            self.max_iter_reached = full(v=False, dtype=torch.bool)
+            self.overlap, self.residual = full(v=0.0), full(v=0.0)
+            self.cov = full(6, 6, v=0.0)
+        else:
+            self.reading, self.reference = reading, reference
+        self.stages = [_Stage(c, cfg.coarse_iterations, cfg.knn, static)
+                       for c in coarse]
         self.stages.append(_Stage(self.reading, cfg.max_iterations,
-                                  cfg.knn))
-        # The result's other fields (its iterations are the state's).
-        self.T_out = full(4, 4, v=0.0)
-        self.diverged = full(v=False, dtype=torch.bool)
-        self.converged = full(v=False, dtype=torch.bool)
-        self.max_iter_reached = full(v=False, dtype=torch.bool)
-        self.overlap, self.residual = full(v=0.0), full(v=0.0)
-        self.cov = full(6, 6, v=0.0)
+                                  cfg.knn, static))
         self.segments = {"start": self.start, "final_a": self.final_a,
                          "final_b": self.final_b}
         for s in range(len(self.stages)):
@@ -137,10 +161,26 @@ class Registration:
         self.lock = threading.Lock()
         self.event = None
 
+    def _set(self, owner, name: str, value, active=None) -> None:
+        """``owner.<name>`` takes ``value``: bound in an eager run; in
+        place in a static buffer, and there only where ``active`` (the
+        iteration's mask) holds, where it is given."""
+        if not self.static:
+            setattr(owner, name, value)
+            return
+        buf = getattr(owner, name)
+        buf.copy_(value if active is None
+                  else torch.where(active, value, buf))
+
     # -- inputs and outputs -------------------------------------------------
 
     def load(self, reading: Cloud, reference: Cloud, T_init) -> None:
-        """Copy a registration's inputs into the static buffers."""
+        """Copy a registration's inputs into the static buffers (an eager
+        registration, made over its clouds, takes only ``T_init``)."""
+        if not self.static:
+            p = self.reading.points
+            self.T_start = T_init.to(device=p.device, dtype=p.dtype)
+            return
         self.reading.points.copy_(reading.points)
         self.reading.mask.copy_(reading.mask)
         self.reference.points.copy_(reference.points)
@@ -151,20 +191,22 @@ class Registration:
         self.T_start.copy_(T_init)
 
     def result(self) -> I.ICPResult:
-        """The result, copied out of the static buffers (the next
-        registration overwrites them)."""
-        return I.ICPResult(
-            T=self.T_out.clone(), iterations=self.iterations.clone(),
-            converged=self.converged.clone(),
-            max_iter_reached=self.max_iter_reached.clone(),
-            overlap=self.overlap.clone(), residual=self.residual.clone(),
-            cov=self.cov.clone(), diverged=self.diverged.clone())
+        """The result; copied out of static buffers, which the next
+        registration overwrites."""
+        fields = dict(T=self.T_out, iterations=self.iterations,
+                      converged=self.converged,
+                      max_iter_reached=self.max_iter_reached,
+                      overlap=self.overlap, residual=self.residual,
+                      cov=self.cov, diverged=self.diverged)
+        if self.static:
+            fields = {k: v.clone() for k, v in fields.items()}
+        return I.ICPResult(**fields)
 
     # -- segments -------------------------------------------------------------
 
     def start(self) -> None:
-        self.T.copy_(self.T_start)
-        if len(self.stages) > 1:
+        self._set(self, "T", self.T_start)
+        if len(self.stages) > 1 and self.static:
             c = self.stages[0].cloud
             div = self.cfg.coarse_div
             c.points.copy_(self.reading.points[::div])
@@ -180,15 +222,16 @@ class Registration:
         if self.aa:
             self.X.zero_()
             self.GX.zero_()
-            self.T0.copy_(self.T)
-            self.Tinv0.copy_(se3.inverse(self.T))
+            self._set(self, "T0", self.T)
+            self._set(self, "Tinv0", se3.inverse(self.T))
         st = self.stages[s]
-        st.pts.copy_(se3.apply(self.T, st.cloud.points))
+        self._set(st, "pts", se3.apply(self.T, st.cloud.points))
 
     def body(self, s: int) -> None:
-        """One iteration of stage s from its matches, masked by ``done``."""
+        """One iteration of stage s from its matches, masked by ``done``
+        in static buffers."""
         cfg, st, T = self.cfg, self.stages[s], self.T
-        active = ~self.done
+        active = ~self.done if self.static else None
         T_new, delta = I._minimize(st.pts, st.cloud.mask, self.reference,
                                    st.matches, T, cfg)
         if self.aa:
@@ -196,27 +239,26 @@ class Registration:
                 T, T_new, self.X, self.GX, self.T0, self.Tinv0, self.eye,
                 self.iterations + 1 >= cfg.anderson_m)
             delta = T_new @ se3.inverse(T)
+            self._set(self, "X", X, active)
+            self._set(self, "GX", GX, active)
         dts = torch.cat([se3.translation_norm(delta)[None], self.dts[:-1]])
         drs = torch.cat([se3.rotation_angle(delta)[None], self.drs[:-1]])
         converged = (dts.mean() < cfg.trans_eps) & (drs.mean() < cfg.rot_eps)
-        self.T.copy_(torch.where(active, T_new, T))
-        self.dts.copy_(torch.where(active, dts, self.dts))
-        self.drs.copy_(torch.where(active, drs, self.drs))
-        if self.aa:
-            self.X.copy_(torch.where(active, X, self.X))
-            self.GX.copy_(torch.where(active, GX, self.GX))
+        self._set(self, "T", T_new, active)
+        self._set(self, "dts", dts, active)
+        self._set(self, "drs", drs, active)
         # An inactive iteration's test is its frozen windows', true.
-        self.done.copy_(self.done | converged)
-        self.iterations.add_(active.to(torch.int32))
-        st.pts.copy_(se3.apply(self.T, st.cloud.points))
+        self._set(self, "done", self.done | converged)
+        self.iterations.add_(1 if active is None else active.to(torch.int32))
+        self._set(st, "pts", se3.apply(self.T, st.cloud.points))
 
     def final_a(self) -> None:
         T, diverged = I.bound_check(self.T, self.T_start, self.cfg)
-        self.T_out.copy_(T)
-        self.diverged.copy_(diverged)
-        self.converged.copy_(self.done & ~diverged)
+        self._set(self, "T_out", T)
+        self._set(self, "diverged", diverged)
+        self._set(self, "converged", self.done & ~diverged)
         st = self.stages[-1]
-        st.pts.copy_(se3.apply(T, self.reading.points))
+        self._set(st, "pts", se3.apply(T, self.reading.points))
 
     def final_b(self) -> None:
         cfg, st = self.cfg, self.stages[-1]
@@ -224,11 +266,11 @@ class Registration:
                                     self.reading.mask)
         elems = I.build_error_elements(st.pts, self.reference, st.matches,
                                        weights, cfg)
-        self.max_iter_reached.copy_((self.iterations >= cfg.max_iterations)
-                                    & ~self.converged)
-        self.overlap.copy_(M.overlap(weights, self.reading.count()))
-        self.residual.copy_(M.residual_error(elems, cfg.error))
-        self.cov.copy_(M.covariance(elems, cfg.error))
+        self._set(self, "max_iter_reached",
+                  (self.iterations >= cfg.max_iterations) & ~self.converged)
+        self._set(self, "overlap", M.overlap(weights, self.reading.count()))
+        self._set(self, "residual", M.residual_error(elems, cfg.error))
+        self._set(self, "cov", M.covariance(elems, cfg.error))
 
     # -- running a registration -----------------------------------------------
 
@@ -236,13 +278,19 @@ class Registration:
         st = self.stages[s]
         m = I.match_clouds(st.pts, st.cloud.mask, self.reference, self.cfg,
                            index)
+        if not self.static:
+            st.matches = m
+            return
         st.matches.dists2.copy_(m.dists2)
         st.matches.ids.copy_(m.ids)
 
     def run(self, index, call, count: bool = True) -> None:
-        """One registration over the loaded buffers: ``call(name)`` runs
-        segment ``name`` (eagerly, or as a replay), the matches between
-        them. Every iteration to the caps counts in ``icp.iterations``."""
+        """One registration over the buffers: ``call(name)`` runs segment
+        ``name`` (eagerly, or as a replay), the matches between them.
+        Over static buffers each stage runs to its cap; otherwise the
+        host reads ``done`` after each iteration and leaves the stage
+        once it is set. Every iteration run counts in
+        ``icp.iterations``."""
         call("start")
         for s, st in enumerate(self.stages):
             if s:
@@ -252,6 +300,10 @@ class Registration:
                 call(f"body{s}")
                 if count:
                     timing.count("icp.iterations")
+                if not self.static:
+                    with timing.wait("icp.converged"):
+                        if bool(self.done):
+                            break
         call("final_a")
         self.match(len(self.stages) - 1, index)
         call("final_b")
@@ -330,10 +382,10 @@ def register(reading: Cloud, reference: Cloud, T_init: torch.Tensor, cfg,
 
 def register_eager(reading: Cloud, reference: Cloud, T_init: torch.Tensor,
                    cfg, index=None) -> I.ICPResult:
-    """The same registration run segment by segment without graphs, on
-    any device (what the graphs replay; the CPU tests hold it to the
-    host-decided loop)."""
-    reg = Registration(reading, reference, cfg)
+    """``icp_core`` with the segments of a fresh :class:`Registration`
+    run eagerly, on any device, each stage left once it has converged."""
+    timing.count("icp.eager.registrations")
+    reg = Registration(reading, reference, cfg, static=False)
     reg.load(reading, reference, T_init)
     reg.run(index, reg.eager)
     return reg.result()

@@ -33,7 +33,7 @@ from ..localizer import (Localizer, prepare_input_batched,
                          probe_build_batched, probe_overlap_from_batched)
 from ..localmap import batch_rebuild, stack_compositions
 from ..loopcloser import LoopCloser
-from ..ops.icp import host_entry, to_host
+from ..ops.icp import HostFetch, pack_result, unpack_result
 from ..optimizer import Optimizer
 from ..slam import SlamConfig
 from ..utils import timing
@@ -167,16 +167,17 @@ class MultiAgentSlam:
                 readings = stack_clouds([preps[b][0] for b in pad_ix])
             (T0s,) = upload([np.stack([preps[b][1] for b in pad_ix])],
                             self.device)
-        # One host copy of the fleet's results.
+        # One host copy of the fleet's results, packed.
         with timing.span("pgslam.fleet.register"):
-            results = to_host(self._register(readings, references, T0s))
+            vec = HostFetch(pack_result(
+                self._register(readings, references, T0s))).get()
 
         # Phase 1: pose updates and the overlap-probe requests.
         res_of, probe_req = {}, {}
         with timing.span("pgslam.fleet.agents"):
             for i, b in enumerate(live):
                 loc = self.localizers[b]
-                res_of[b] = loc.begin_finish(host_entry(results, i))
+                res_of[b] = loc.begin_finish(unpack_result(vec[i])[0])
                 comp = loc.neighbor_probe_request()
                 if comp is not None:
                     probe_req[b] = comp

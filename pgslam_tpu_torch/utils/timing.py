@@ -23,8 +23,9 @@ until the next starts, and :func:`recording` returns it.
 * :func:`count` adds to a counter of the recording (``steps``, ``scans``,
   ``launch.k1`` ... ``launch.k4``, ``icp.iterations``; ``icp_core``'s
   route: ``icp.graph.registrations``, the registrations served by CUDA
-  graph replays, ``icp.eager.registrations``, those on the host-decided
-  loop, and ``icp.graph.captures``, the graphs captured; the fleet's
+  graph replays, ``icp.eager.registrations``, those run eagerly with the
+  host leaving each stage once it has converged, and
+  ``icp.graph.captures``, the graphs captured; the fleet's
   input preparation, one a step on the route taken:
   ``fleet.prepare.batched``, the whole preparation once over the step's
   batch, and ``fleet.prepare.per_agent``, an input filter chain run per

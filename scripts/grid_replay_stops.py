@@ -17,8 +17,10 @@ far below 1 the larger value was at the stop, or above 1 one iteration
 earlier). It also prints each
 run's loop-closure candidates and verifications, and each run's per-scan
 gap to the CPU run where it first exceeds 1e-4 m. The ICP loop is traced
-through a copy of ``ops/icp.py::_icp_loop`` that records the checker's
-values; the arithmetic is the loop's.
+by wrapping the eager run of ``ops/icp_graph.py::Registration`` (every
+registration but point-to-plane on the card, which replays graphs and
+is not traced): after each iteration of the last stage it reads the
+checker's values; the arithmetic is the loop's.
 """
 
 import argparse
@@ -31,8 +33,8 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from pgslam_tpu_torch import loopcloser, replays, se3  # noqa: E402
-from pgslam_tpu_torch.ops import icp as I  # noqa: E402
+from pgslam_tpu_torch import loopcloser, replays  # noqa: E402
+from pgslam_tpu_torch.ops.icp_graph import Registration  # noqa: E402
 from pgslam_tpu_torch.optim import lm, pgo  # noqa: E402
 from pgslam_tpu_torch.slam import PoseGraphSlam  # noqa: E402
 
@@ -48,35 +50,32 @@ class Trace:
         # per registration (the scan's, then a verification's)
         self.stops = {}
         self.closures = []
+        self.values = None    # the running registration's checker
 
-    def icp_loop(self, reading, reference, T0, cfg, max_iterations, index):
-        """``ops/icp.py::_icp_loop`` with the checker's values kept."""
-        L = max(1, cfg.smooth_length)
-        dts = torch.full((L,), float("inf"), dtype=T0.dtype,
-                         device=T0.device)
-        drs = dts.clone()
-        aa = (I._Anderson(T0, cfg.anderson_m)
-              if cfg.anderson_m and cfg.anderson_m > 1 else None)
-        T, it, converged, values = T0, 0, False, []
-        while it < max_iterations and not converged:
-            T_plain, delta = I._icp_step(reading, reference, T, cfg, index)
-            if aa is not None:
-                T_new = aa(T, T_plain, it)
-                delta = T_new @ se3.inverse(T)
-                T = T_new
-            else:
-                T = T_plain
-            dts = torch.cat([se3.translation_norm(delta)[None], dts[:-1]])
-            drs = torch.cat([se3.rotation_angle(delta)[None], drs[:-1]])
-            converged = bool((dts.mean() < cfg.trans_eps)
-                             & (drs.mean() < cfg.rot_eps))
-            values.append((float(dts.mean()) / cfg.trans_eps,
-                           float(drs.mean()) / cfg.rot_eps))
-            it += 1
-        if max_iterations == cfg.max_iterations:   # not a coarse stage
-            self.stops.setdefault(self.scan, []).append(
-                (it, values[-3:], converged))
-        return T, it, converged
+    def body(self, reg, s):
+        """``Registration.body``, then the checker's values after an
+        iteration of the last stage of a traced run."""
+        BODY(reg, s)
+        if self.values is not None and s == len(reg.stages) - 1:
+            cfg = reg.cfg
+            self.values.append((float(reg.dts.mean()) / cfg.trans_eps,
+                                float(reg.drs.mean()) / cfg.rot_eps))
+
+    def run(self, reg, index, call, count=True):
+        """``Registration.run``; an eager run (not ``static``) is
+        traced."""
+        self.values = None if reg.static else []
+        try:
+            RUN(reg, index, call, count=count)
+            if not reg.static:
+                self.stops.setdefault(self.scan, []).append(
+                    (int(reg.iterations), self.values[-3:],
+                     bool(reg.done)))
+        finally:
+            self.values = None
+
+
+BODY, RUN = Registration.body, Registration.run
 
 
 def run(device, plain_lm: bool) -> tuple:
@@ -107,12 +106,13 @@ def run(device, plain_lm: bool) -> tuple:
     saved = [(PoseGraphSlam, "add_data", add),
              (loopcloser.LoopCloser, "find_candidate_composition", find),
              (loopcloser.LoopCloser, "check_icp_result", check),
-             (I, "_icp_loop", I._icp_loop), (lm, "lm_optimize",
-                                             lm.lm_optimize)]
+             (Registration, "body", BODY), (Registration, "run", RUN),
+             (lm, "lm_optimize", lm.lm_optimize)]
     PoseGraphSlam.add_data = add_data
     loopcloser.LoopCloser.find_candidate_composition = find_candidate
     loopcloser.LoopCloser.check_icp_result = check_result
-    I._icp_loop = trace.icp_loop
+    Registration.body = lambda reg, s: trace.body(reg, s)
+    Registration.run = lambda reg, *a, **k: trace.run(reg, *a, **k)
     if plain_lm:
         lm.lm_optimize = lambda *a, config, ptr_host=None: \
             pgo.lm_optimize_plain(*a, config=config)

@@ -23,7 +23,7 @@ from pgslam_tpu_torch.cloud import make_cloud as tmake
 from pgslam_tpu_torch.convert import config_from_dict, config_to_dict
 from pgslam_tpu_torch.ops.icp import ICPConfig as TICPConfig
 from pgslam_tpu_torch.ops.icp import ICPEngine as TEngine
-from pgslam_tpu_torch.ops.icp import _Anderson
+from pgslam_tpu_torch.ops.icp import _anderson
 from pgslam_tpu_torch.ops.icp import icp_core as t_icp_core
 from pgslam_tpu_torch.ops.icp_fused import fused_eligible
 
@@ -131,7 +131,9 @@ def test_anderson_update_matches_jax_step_for_step(m):
     reading = jmake(moved, capacity=1536)
     T = T0 = jse3.identity()
     X = GX = jnp.zeros((m, 6), jnp.float32)
-    aa = _Anderson(torch.eye(4), m)
+    eye4 = torch.eye(4)
+    Xt = GXt = torch.zeros((m, 6))
+    eye = torch.eye(m - 1)
     accepted = 0
     for it in range(16):
         p = jse3.apply(T, reading.points)
@@ -140,7 +142,8 @@ def test_anderson_update_matches_jax_step_for_step(m):
         T_plain = JM.point_to_point(build_error_elements(
             p, reading.mask, je.reference, matches, w, jcfg)) @ T
         T_new, X, GX, ok = _jax_aa_update(T, T_plain, T0, X, GX, it, m)
-        T_port = aa(_t(T), _t(T_plain), it)
+        T_port, Xt, GXt = _anderson(_t(T), _t(T_plain), Xt, GXt, eye4,
+                                    tse3.inverse(eye4), eye, it + 1 >= m)
         # The window's small solve is ill-conditioned mid-run (gamma up
         # to ~9 here), so its rounding alone moves the update by ~4e-5.
         assert _twist_gap(T_port, T_new) < 1e-4, it

@@ -9,8 +9,8 @@ import pytest
 import torch
 
 from pgslam_tpu_torch import replays
-from pgslam_tpu_torch.ops.icp import (ICPResult, fetch_async, host_entry,
-                                      pack_result, to_host, unpack_result)
+from pgslam_tpu_torch.ops.icp import (HostFetch, ICPResult, pack_result,
+                                      unpack_result)
 from torch_threads import one_torch_thread  # noqa: F401
 
 
@@ -52,12 +52,15 @@ def _result(lead=()):
 
 
 def test_pack_unpack_round_trip_is_to_host():
+    """A result packed, fetched through ``HostFetch`` and unpacked has
+    the bits of each field's own host copy (the one road of a result to
+    the host, in place of a copy a field)."""
     res = _result()
-    got, extra = unpack_result(fetch_async(pack_result(res, 0.25)).get())
-    want = to_host(res)
+    got, extra = unpack_result(HostFetch(pack_result(res, 0.25)).get())
     for f in ("T", "cov", "overlap", "residual", "iterations", "converged",
               "max_iter_reached", "diverged"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        np.testing.assert_array_equal(getattr(got, f),
+                                      getattr(res, f).cpu().numpy())
     assert extra == 0.25
     res.diverged = None
     got, extra = unpack_result(pack_result(res).numpy())
@@ -70,8 +73,7 @@ def test_pack_keeps_the_batch_axis():
     assert packed.shape == (3, 59)
     for b in range(3):
         got, _ = unpack_result(packed[b].numpy())
-        np.testing.assert_array_equal(got.T,
-                                      host_entry(to_host(res), b).T)
+        np.testing.assert_array_equal(got.T, res.T[b].cpu().numpy())
 
 
 def test_streaming_flush_pads_a_partial_batch():

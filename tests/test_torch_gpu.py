@@ -798,22 +798,23 @@ def test_loop_replay_launches_every_kernel(cuda):
     assert all(a > b for a, b in zip(after, before))
 
 
-def test_fetch_async_lands_the_packed_result(cuda):
+def test_host_fetch_lands_the_packed_result(cuda):
     """One packed result goes to pinned host memory without a blocking
-    copy; get() waits on its event and gives to_host's bits."""
-    from pgslam_tpu_torch.ops.icp import (fetch_async, host_entry,
-                                          pack_result, to_host, unpack_result)
+    copy; get() waits on its event and gives each field's own copy's
+    bits."""
+    from pgslam_tpu_torch.ops.icp import (HostFetch, pack_result,
+                                          unpack_result)
     rds, rfs = _box_problems(cuda, 1)
     cfg = ICPConfig(outlier=(O.TrimmedDist(0.9), O.MaxDist(1.0)),
                     max_iterations=12)
     res = fused_icp_register(stack_clouds(rds), stack_clouds(rfs),
                              torch.eye(4, device=cuda)[None], cfg)
-    fetch = fetch_async(pack_result(res, torch.tensor([0.5], device=cuda)))
+    fetch = HostFetch(pack_result(res, torch.tensor([0.5], device=cuda)))
     assert fetch._host.is_pinned()
     got, extra = unpack_result(fetch.get()[0])
-    want = host_entry(to_host(res), 0)
     for f in ("T", "cov", "overlap", "residual", "iterations", "converged"):
-        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        np.testing.assert_array_equal(getattr(got, f),
+                                      getattr(res, f)[0].cpu().numpy())
     assert extra == 0.5
 
 
@@ -1080,10 +1081,11 @@ def _velodyne_front(cuda, n_scans=6):
 
 def test_icp_graph_route_equals_host_loop_at_velodyne_shapes(cuda):
     """Point-to-plane at 2,048 vs 8,192 with a coarse stage: the graph
-    route gives the host-decided loop's result, every field bit for bit,
-    scan after scan (the graphs captured at the first)."""
+    route gives the eager run's result (each stage left once it has
+    converged), every field bit for bit, scan after scan (the graphs
+    captured at the first)."""
     from pgslam_tpu_torch.ops import icp_graph
-    from pgslam_tpu_torch.ops.icp import icp_core, icp_core_host
+    from pgslam_tpu_torch.ops.icp import icp_core
     cfg, engine, pairs = _velodyne_front(cuda)
     assert cfg.error == "point_to_plane" and cfg.coarse_div == 8
     ref = engine.reference
@@ -1092,7 +1094,7 @@ def test_icp_graph_route_equals_host_loop_at_velodyne_shapes(cuda):
         assert reading.points.shape[0] == 2048
         assert icp_graph.graph_route(reading, ref, T0, cfg)
         got = icp_core(reading, ref, T0, cfg)
-        want = icp_core_host(reading, ref, T0, cfg)
+        want = icp_graph.register_eager(reading, ref, T0, cfg)
         for name, v in vars(want).items():
             assert torch.equal(getattr(got, name), v), name
     assert icp_graph.registration(pairs[0][0], ref, cfg).graphs is not None
@@ -1188,12 +1190,10 @@ def test_icp_graph_registrations_from_threads_keep_their_results(cuda):
 def test_icp_graph_route_takes_every_point_to_plane_config(cuda, matcher,
                                                            k, m, coarse):
     """k > 1, Anderson acceleration and the grid matcher ride the graph
-    route too, with the host-decided loop's bits; point-to-point keeps
-    the host loop."""
+    route too, with the eager run's bits; point-to-point runs eagerly."""
     import dataclasses
     from pgslam_tpu_torch.ops import icp_graph
-    from pgslam_tpu_torch.ops.icp import (ICPEngine, icp_core,
-                                          icp_core_host)
+    from pgslam_tpu_torch.ops.icp import ICPEngine, icp_core
     from pgslam_tpu_torch.utils import timing
     from torch.profiler import ProfilerActivity, profile
     rds, rfs = _box_problems(cuda, 2)
@@ -1211,7 +1211,7 @@ def test_icp_graph_route_takes_every_point_to_plane_config(cuda, matcher,
         with profile(activities=[ProfilerActivity.CPU]):
             got = icp_core(rd, ref, T0, cfg, engine.index)
         assert timing.recording().counters["icp.graph.registrations"] == 1
-        want = icp_core_host(rd, ref, T0, cfg, engine.index)
+        want = icp_graph.register_eager(rd, ref, T0, cfg, engine.index)
         for name, v in vars(want).items():
             assert torch.equal(getattr(got, name), v), name
     p2p = dataclasses.replace(cfg, error="point_to_point")

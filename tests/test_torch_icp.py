@@ -143,10 +143,7 @@ def _pair(error, seed=0, n=420):
     return pts, moved.astype(np.float32)
 
 
-@pytest.mark.parametrize("error,coarse", [("point_to_point", 0),
-                                          ("point_to_plane", 0),
-                                          ("point_to_plane", 4)])
-def test_icp_core_matches_jax(error, coarse):
+def _compare_icp_core(error, coarse, **settings):
     pts, moved = _pair(error)
     # Point-to-point at the golden loop profile's eps (1e-3): the JAX
     # checker's arccos angle is quantized to ~3.4e-4 rad in fp32, so at
@@ -154,7 +151,7 @@ def test_icp_core_matches_jax(error, coarse):
     # SVD's trace (the port's atan2 angle is exact; se3.rotation_angle).
     eps = 1e-3 if error == "point_to_point" else 1e-4
     kw = dict(error=error, max_iterations=40, trans_eps=eps, rot_eps=eps,
-              coarse_div=coarse, coarse_iterations=4)
+              coarse_div=coarse, coarse_iterations=4, **settings)
     jcfg = JICPConfig(outlier=(JO.TrimmedDist(0.9), JO.MaxDist(1.0)),
                       reference_filters=(JF.SurfaceNormal(knn=8),), **kw)
     tcfg = TICPConfig(outlier=(TO.TrimmedDist(0.9), TO.MaxDist(1.0)),
@@ -162,10 +159,15 @@ def test_icp_core_matches_jax(error, coarse):
     je, te = JEngine(jcfg), TEngine(tcfg)
     je.set_map(jmake(pts, capacity=512))
     te.set_map(tmake(pts, capacity=512))
-    rj = j_icp_core(jmake(moved, capacity=512), je.reference,
-                    jse3.identity(), jcfg)
-    rt = t_icp_core(tmake(moved, capacity=512), te.reference,
-                    torch.eye(4), tcfg)
+    if tcfg.matcher == "grid":
+        # Through the engines, which pass their map's index.
+        rj = je(jmake(moved, capacity=512), jse3.identity())
+        rt = te(tmake(moved, capacity=512), torch.eye(4))
+    else:
+        rj = j_icp_core(jmake(moved, capacity=512), je.reference,
+                        jse3.identity(), jcfg)
+        rt = t_icp_core(tmake(moved, capacity=512), te.reference,
+                        torch.eye(4), tcfg)
     d = tse3.log(tse3.inverse(rt.T) @ _t(rj.T)).numpy()
     assert np.linalg.norm(d) < T_TOL
     assert int(rt.iterations) == int(rj.iterations)
@@ -174,6 +176,27 @@ def test_icp_core_matches_jax(error, coarse):
                                atol=1e-6)
     np.testing.assert_allclose(float(rt.residual), float(rj.residual),
                                rtol=1e-3)
+
+
+@pytest.mark.parametrize("error,coarse", [("point_to_point", 0),
+                                          ("point_to_plane", 0),
+                                          ("point_to_plane", 4)])
+def test_icp_core_matches_jax(error, coarse):
+    _compare_icp_core(error, coarse)
+
+
+@pytest.mark.parametrize("error,coarse,settings", [
+    ("point_to_plane", 4, dict(anderson_m=3)),
+    ("point_to_point", 4, dict(anderson_m=3)),
+    ("point_to_plane", 0, dict(matcher="grid", grid_cell_size=0.5)),
+    ("point_to_point", 4, dict(matcher="grid", grid_cell_size=0.5)),
+], ids=["p2plane-coarse-anderson", "p2p-coarse-anderson", "p2plane-grid",
+        "p2p-coarse-grid"])
+def test_icp_core_settings_match_jax(error, coarse, settings):
+    """The other settings of the one loop against the JAX package:
+    Anderson acceleration across the coarse stage's entry, and the grid
+    matcher through each engine's index."""
+    _compare_icp_core(error, coarse, **settings)
 
 
 def test_unported_settings_raise():

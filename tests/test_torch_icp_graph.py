@@ -1,9 +1,9 @@
-"""The device-decided ICP loop (``ops/icp_graph.py``), run segment by
-segment without graphs on the CPU, against the host-decided loop
-(``ops/icp.py::_icp_loop``) bit for bit; and the outlier thresholds,
-which no longer read anything on the host, against their indexed form.
-The graphs themselves replay on the card only
-(``tests/test_torch_gpu.py``)."""
+"""The ICP loop (``ops/icp_graph.py``) run to every stage's cap, as the
+CUDA graphs replay it, here segment by segment without graphs on the
+CPU, against ``icp_core``'s eager run, which leaves each stage once it
+has converged, bit for bit; and the outlier thresholds, which no longer
+read anything on the host, against their indexed form. The graphs
+themselves replay on the card only (``tests/test_torch_gpu.py``)."""
 
 import numpy as np
 import pytest
@@ -55,6 +55,10 @@ def _scene(dtype):
 @pytest.mark.parametrize("error,coarse,stop,m,dtype,matcher", CASES)
 def test_device_decided_loop_equals_host_loop(error, coarse, stop, m,
                                               dtype, matcher):
+    """The one ICP loop run two ways: every stage to its cap with the
+    stop decided on the device (what the graphs replay, here eagerly),
+    against ``icp_core``'s run, where the host leaves each stage once it
+    has converged; every field bit for bit."""
     eps = 0.0 if stop == "never" else 1e-4
     cfg = ICPConfig(error=error, matcher=matcher, coarse_div=coarse,
                     coarse_iterations=6, anderson_m=m,
@@ -69,8 +73,10 @@ def test_device_decided_loop_equals_host_loop(error, coarse, stop, m,
                                                 dtype=dtype))
     assert not icp_graph.graph_route(reading, engine.reference, T0, cfg)
     want = icp_core(reading, engine.reference, T0, cfg, engine.index)
-    got = icp_graph.register_eager(reading, engine.reference, T0, cfg,
-                                   engine.index)
+    reg = icp_graph.Registration(reading, engine.reference, cfg)
+    reg.load(reading, engine.reference, T0)
+    reg.run(engine.index, reg.eager)
+    got = reg.result()
     for name, v in vars(want).items():
         assert torch.equal(getattr(got, name), v), name
     assert got.T.dtype == dtype

@@ -154,6 +154,37 @@ def test_icp_convergence_site_counts_every_iteration(recordings, run):
         rec.counters["icp.iterations"]
 
 
+def test_fleet_results_come_up_in_one_packed_fetch(monkeypatch):
+    """A fleet's registration batch comes to the host in one fetch a step,
+    and a step's batched verification in one more: no per-field copy
+    (``icp.to_host``) and no per-entry residual read
+    (``loopcloser.residual``)."""
+    fleet, feed = _fleet_run()
+    fetches = []          # (step, span) of each fetch.event wait
+    enter = timing._Wait.__enter__
+
+    def spied(self):
+        if self.site == "fetch.event":
+            st = timing._stack()
+            fetches.append((st[-1].step, {s.name for s in st}))
+        return enter(self)
+
+    monkeypatch.setattr(timing._Wait, "__enter__", spied)
+    rec = _profiled(lambda: feed(0, 10))
+    assert not {"icp.to_host", "loopcloser.residual"} & set(rec.sites)
+    for name in ("pgslam.fleet.register", "pgslam.loopcloser.verify"):
+        steps = [r.step for r in rec.records if r.name == name]
+        per_step = [sum(step == s and name in spans
+                        for step, spans in fetches) for s in steps]
+        if name == "pgslam.fleet.register":
+            assert len(steps) == 9 and per_step == [1] * 9
+        else:
+            # Every step enters the verification; those with queued
+            # candidates fetch their batch once.
+            assert set(per_step) == {0, 1}, per_step
+    assert fleet.loop_closer.accepted + fleet.loop_closer.rejected >= 1
+
+
 def test_recording_holds_outside_a_profiler_and_restarts_in_the_next():
     slam, feed = _single_run()
     first = _profiled(lambda: feed(0, 3))
